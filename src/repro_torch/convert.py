@@ -1,0 +1,93 @@
+"""Carry objects of the JAX package across into this package.
+
+Each function reads the source object only through plain fields and
+``numpy.asarray`` of its arrays, so it works on anything with those
+fields and never imports the JAX package. It builds this package's
+own objects: workloads and task sets for the exec model, design points
+for the stage split and cost model, serve tasks and server inputs as
+tensors on a chosen device.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.dse.space import DesignPoint
+from repro_torch.core.perfmodel.exec_model import AccDesign
+from repro_torch.core.perfmodel.hardware import TPUChip
+from repro_torch.core.rt.task import LayerDesc, Task, TaskSet, Workload
+from repro_torch.pipeline.serve import ServeTask
+
+_LAYER_FIELDS = tuple(f.name for f in dataclasses.fields(LayerDesc))
+_CHIP_FIELDS = tuple(f.name for f in dataclasses.fields(TPUChip))
+
+
+def workload_from(src) -> Workload:
+    """A `Workload` with the same name and layers."""
+    return Workload(
+        name=src.name,
+        layers=tuple(
+            LayerDesc(**{f: getattr(l, f) for f in _LAYER_FIELDS})
+            for l in src.layers
+        ),
+    )
+
+
+def taskset_from(src) -> TaskSet:
+    """A `TaskSet` with the same tasks, workloads, periods and deadlines."""
+    return TaskSet(
+        tasks=tuple(
+            Task(
+                workload=workload_from(t.workload),
+                period=t.period,
+                deadline=t.deadline,
+                sporadic=t.sporadic,
+                name=t.name,
+            )
+            for t in src.tasks
+        )
+    )
+
+
+def design_from(src) -> DesignPoint:
+    """A `DesignPoint` with the same accelerators and layer splits."""
+    accs = tuple(
+        AccDesign(
+            chips=a.chips,
+            block=tuple(a.block),
+            chip=TPUChip(**{f: getattr(a.chip, f) for f in _CHIP_FIELDS}),
+        )
+        for a in src.accs
+    )
+    return DesignPoint(
+        accs=accs,
+        splits=tuple(tuple(int(n) for n in row) for row in src.splits),
+        max_util=float(src.max_util),
+    )
+
+
+def tensors_from(arrays, *, device="cuda", dtype=None) -> list[torch.Tensor]:
+    """Arrays (anything ``numpy.asarray`` takes) as tensors on
+    ``device``, in their own dtype unless ``dtype`` is given — the
+    server's ``inputs=``."""
+    return [
+        torch.as_tensor(np.array(x), dtype=dtype, device=device)
+        for x in arrays
+    ]
+
+
+def serve_task_from(src, *, device="cuda") -> ServeTask:
+    """A `ServeTask` with the same fields and the same weight values as
+    float32 tensors on ``device``."""
+    return ServeTask(
+        name=src.name,
+        weights=tuple(
+            tensors_from(src.weights, device=device, dtype=torch.float32)
+        ),
+        stage_of_layer=tuple(src.stage_of_layer),
+        period=src.period,
+        deadline=src.deadline,
+        input_rows=src.input_rows,
+    )
