@@ -27,7 +27,22 @@ Phases, each printing what it finds; any failure exits non-zero:
 4. wall    — a short wall-clock run on the card under the PyTorch
              profiler (the card's busy time by kernel, and so its idle
              share), then ``CostModel.calibrate`` with CUDA events.
-5. report  — a ``kernels`` JSON line, the card's name and power limit,
+5. lmkern  — the flash-attention and WKV-6 kernels against their plain
+             versions at the LM path's shapes (Mistral-NeMo attention at
+             S = 2048, a ragged S = 1000 and head width 64; RWKV-6's WKV
+             at S = 2048 and a ragged S), each with its card time, the
+             plain version's, ``scaled_dot_product_attention`` for flash
+             (a yardstick the port never calls), bound and error.
+6. lm      — Mistral-NeMo-12B, then RWKV-6-7B, at full width and depth
+             with random bf16 weights from a CUDA generator: prefill of
+             a 2 x 2048 prompt and 16 greedy decode steps through
+             ``repro_torch.launch.steps``, with the kernels' launch
+             counts (one flash per attention layer and one WKV per
+             time-mix layer per prefill, none in decode), decode against
+             a longer prefill, a 2-layer full-width model against the
+             port's own CPU run of the same weights and tokens, and the
+             times under the PyTorch profiler with the card's busy share.
+7. report  — a ``kernels`` JSON line, the card's name and power limit,
              and the result line.
 
 Exits with code 2 and prints no result when no CUDA card is visible.
@@ -50,11 +65,20 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import _build  # noqa: E402
+from repro_torch.configs import load_config  # noqa: E402
 from repro_torch.conformance import CostModel  # noqa: E402
 from repro_torch.core.dse.space import DesignPoint  # noqa: E402
 from repro_torch.core.perfmodel.exec_model import AccDesign  # noqa: E402
 from repro_torch.core.perfmodel.hardware import paper_platform  # noqa: E402
 from repro_torch.core.workloads import PAPER_WORKLOADS, make_taskset  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_call,
+)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    KERNEL_TOL as FLASH_TOL,
+    attention_plain,
+    tol_ratio,
+)
 from repro_torch.kernels.preemptible_matmul import (  # noqa: E402
     grid_geometry,
     matmul_resumable,
@@ -68,6 +92,11 @@ from repro_torch.kernels.preemptible_matmul.ref import (  # noqa: E402
     matmul_ref,
     matmul_window_plain,
 )
+from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_call  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_plain  # noqa: E402
+from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.module import param_bytes, param_count  # noqa: E402
 from repro_torch.pipeline import PharosServer, design_to_segments  # noqa: E402
 from repro_torch.pipeline.serve import window_plan  # noqa: E402
 from repro_torch.traffic.clock import VirtualClock, WallClock  # noqa: E402
@@ -340,7 +369,7 @@ def phase_serve() -> int:
         want.append(y)
     horizon = 20 * max(t.period for t in gpu_tasks)
     warm = sum(len(t.weights) for t in gpu_tasks)
-    matmul_window_call.launches = 0  # the main path starts here
+    reset_counts()  # the main path starts here
     total = 0
     for backend in ("jnp", "pallas"):
         cm = CostModel.from_exec_model(
@@ -389,6 +418,8 @@ def phase_serve() -> int:
                 f"host s: card {t_gpu:.3f} cpu {t_cpu:.3f}"
             )
     check(matmul_window_call.launches == total, "launch count adds up")
+    check(flash_attention_call.launches == rwkv6_scan_call.launches == 0,
+          "the serving path launches no LM kernel")
     return total
 
 
@@ -446,6 +477,367 @@ def phase_wall() -> None:
           f"misses {sum(rep_v.deadline_misses.values())}")
 
 
+# ---------------------------------------------------------------------------
+# LM serving path: flash attention, WKV-6, Mistral-NeMo-12B, RWKV-6-7B
+# ---------------------------------------------------------------------------
+LM_MODELS = ("mistral_nemo_12b", "rwkv6_7b")  # served one after the other
+LM_BATCH, LM_PROMPT, LM_NEW_TOKENS = 2, 2048, 16
+LM_CACHE_LEN = LM_PROMPT + LM_NEW_TOKENS
+#: card against the port's own CPU run: a 2-layer model at full width
+LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_DECODE = 2, 1, 256, 2
+#: flash kernel vs its plain version: element by element, within
+#: FLASH_TOL (flash_attention/ref.py: one bf16 ulp of each value, plus a
+#: floor of 1e-3 of the output's rms for values that cancel to near 0)
+#: WKV-6 kernel (exact step-by-step recurrence) vs the plain chunked form,
+#: whose k / prod(w) rescale loses a few digits: the reference's own
+#: tolerance between its chunked kernel and its stepwise oracle
+WKV_MAX_REL_ERR = 1e-4
+#: decode at step S against a prefill over S+1 tokens, bf16 at full depth:
+#: the reference's own teacher-forcing bounds (tests/test_models.py,
+#: test_prefill_decode_matches_forward): relative L2 < 0.05, top-1 on at
+#: least half the rows. The decode path rounds attention probabilities
+#: to bf16 where the flash kernel keeps them fp32, and RWKV's token-shift
+#: states pass through the cache in bf16.
+CONSIST_REL_L2, CONSIST_TOP1 = 0.05, 0.5
+#: card against CPU (same bf16 weights and tokens, 2 layers): bf16
+#: products round at other places in cuBLAS and the CPU's kernels, as in
+#: tests/test_torch_lm.py's bf16 cases (relative L2 3e-2)
+CARD_CPU_REL_L2 = 3e-2
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0."""
+    matmul_window_call.launches = 0
+    flash_attention_call.launches = 0
+    rwkv6_scan_call.launches = 0
+
+
+def counts() -> dict:
+    return {
+        "preemptible_matmul_window": matmul_window_call.launches,
+        "flash_attention": flash_attention_call.launches,
+        "rwkv6_scan": rwkv6_scan_call.launches,
+    }
+
+
+def flash_bound(B, S, H, Hkv, hd, es):
+    """Least time (ms) for causal attention, and what bounds it: q, o and
+    k, v read or written once over memory bandwidth, against 4 * hd flops
+    per (query, key <= query) pair at the bf16 tensor-core peak."""
+    nbytes = 2 * B * S * (H + Hkv) * hd * es
+    flops = 4.0 * hd * B * H * S * (S + 1) / 2
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def wkv_bound(B, S, H, hd):
+    """Least time (ms) for WKV-6, and what bounds it: r, k, v, w read and
+    y written once (plus u and S_final) over memory bandwidth, against
+    the fp32 flops the function needs at the fp32 FMA peak. Per step and
+    head: the state update w * S + k v^T is 3 flops per state element and
+    r^T S is 2; the bonus r^T diag(u) k v^T is (sum_i r_i u_i k_i) v, 3
+    flops per row to reduce and 2 per column to add."""
+    nbytes = 4 * (5 * B * S * H * hd + H * hd + B * H * hd * hd)
+    flops = float(B * S * H) * (5 * hd * hd + 5 * hd)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_case(B, S, H, Hkv, hd, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    got = flash_attention_call(q, k, v)
+    want = attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs().max().item()
+    ratio = tol_ratio(got, want)
+    check(ratio <= 1.0,
+          f"flash kernel vs plain at B={B} S={S} H={H}/{Hkv} hd={hd}: "
+          f"error {ratio:.3g} x the limit (rtol, floor) {FLASH_TOL[dtype]}")
+    ms = device_ms(lambda: flash_attention_call(q, k, v), reps=10)
+    plain_ms = device_ms(lambda: attention_plain(q, k, v), reps=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, heads, S, hd)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = device_ms(
+        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), reps=10
+    )
+    bound_ms, bound_by = flash_bound(B, S, H, Hkv, hd, q.element_size())
+    return {
+        "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
+        "dtype": str(dtype).replace("torch.", ""),
+        "max_abs_err": diff, "tol_ratio": ratio, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def wkv_inputs(B, S, H, hd, seed):
+    """r, k, v normal (k x 0.3), decays from logits clamped to the
+    model's range, u normal x 0.1 — as the model feeds the scan."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+    k = torch.randn((B, S, H, hd), generator=gen, device="cuda") * 0.3
+    v = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+    logit = torch.randn((B, S, H, hd), generator=gen, device="cuda").clamp(-8, -1)
+    w = torch.exp(-torch.exp(logit))
+    u = torch.randn((H, hd), generator=gen, device="cuda") * 0.1
+    return r, k, v, w, u
+
+
+def wkv_case(B, S, H, hd, seed):
+    r, k, v, w, u = wkv_inputs(B, S, H, hd, seed)
+    y, s_fin = rwkv6_scan_call(r, k, v, w, u)
+    y_want, s_want = rwkv6_scan_plain(r, k, v, w, u)
+    torch.cuda.synchronize()
+    diff = max((y - y_want).abs().max().item(), (s_fin - s_want).abs().max().item())
+    rel = max(
+        (y - y_want).abs().max().item() / y_want.abs().max().item(),
+        (s_fin - s_want).abs().max().item() / s_want.abs().max().item(),
+    )
+    check(rel <= WKV_MAX_REL_ERR,
+          f"WKV-6 kernel vs plain at B={B} S={S} H={H}: rel err {rel:.3g}")
+    ms = device_ms(lambda: rwkv6_scan_call(r, k, v, w, u), reps=10)
+    plain_ms = device_ms(lambda: rwkv6_scan_plain(r, k, v, w, u), reps=3)
+    bound_ms, bound_by = wkv_bound(B, S, H, hd)
+    return {
+        "B": B, "S": S, "H": H, "hd": hd, "dtype": "float32",
+        "max_abs_err": diff, "max_rel_err": rel, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def phase_lm_kernels() -> tuple[dict, dict]:
+    """Both LM kernels against their plain versions at the path's shapes;
+    returns the rows the ``kernels`` line reports (the main shapes)."""
+    nemo, rwkv = load_config("mistral_nemo_12b"), load_config("rwkv6_7b")
+    H, Hkv, hd = nemo.n_heads, nemo.n_kv_heads, nemo.head_dim
+    print("[lmkern] flash B S H/Hkv hd dtype | ms plain_ms sdpa_ms bound_ms "
+          "bound_by | max_abs_err err/limit  (card time, CUDA-graph replay; "
+          "limit per element rtol|want| + floor rms(want), bf16 (rtol, floor) "
+          f"{FLASH_TOL[torch.bfloat16]})")
+    flash_rows = []
+    for seed, (S, h, hkv, d) in enumerate(
+        ((LM_PROMPT, H, Hkv, hd), (1000, H, Hkv, hd), (LM_PROMPT, H, Hkv, 64))
+    ):
+        row = flash_case(LM_BATCH, S, h, hkv, d, torch.bfloat16, seed)
+        flash_rows.append(row)
+        print(f"[lmkern] flash {LM_BATCH} {S} {h}/{hkv} {d} bf16 | "
+              f"{row['ms']:.5f} {row['plain_ms']:.5f} {row['library_ms']:.5f} "
+              f"{row['bound_ms']:.5f} {row['bound_by']} | "
+              f"{row['max_abs_err']:.3g} {row['tol_ratio']:.3g}")
+    Hr, hdr = rwkv.n_rwkv_heads, rwkv.rwkv_head_size
+    print("[lmkern] wkv6 B S H hd | ms plain_ms bound_ms bound_by | max_rel_err")
+    wkv_rows = []
+    for seed, (B, S) in enumerate(((LM_BATCH, LM_PROMPT), (1, 1000))):
+        row = wkv_case(B, S, Hr, hdr, 10 + seed)
+        wkv_rows.append(row)
+        print(f"[lmkern] wkv6 {B} {S} {Hr} {hdr} | {row['ms']:.5f} "
+              f"{row['plain_ms']:.5f} {row['bound_ms']:.5f} {row['bound_by']} | "
+              f"{row['max_rel_err']:.3g}")
+    return flash_rows[0], wkv_rows[0]
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _top1(a, b) -> float:
+    return (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def serve_lm(cfg, params, tokens, cache_len, new_tokens):
+    """Prefill ``tokens``, then ``new_tokens`` greedy decode steps.
+    Returns (prefill logits, decode logits per step, generated tokens,
+    prefill s, decode s), host times around synchronised work."""
+    prefill_step = make_prefill_step(cfg, cache_len)
+    serve_step = make_serve_step(cfg)
+    B, S = tokens.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    steps, out = [], []
+    nxt = logits.argmax(-1)
+    t0 = time.perf_counter()
+    for i in range(new_tokens):
+        out.append(nxt)
+        pos = torch.full((B,), S + i, dtype=torch.long, device=tokens.device)
+        step_logits, cache = serve_step(params, cache, {"tokens": nxt}, pos)
+        steps.append(step_logits)
+        nxt = step_logits.argmax(-1)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    return logits, steps, torch.stack(out, 1), t_prefill, t_decode
+
+
+def card_vs_cpu(name, cfg, seed) -> dict:
+    """A 2-layer model at full width: the card's prefill and decode
+    logits against the port's CPU run of the same weights and tokens."""
+    small = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = lm.init_params(gen, small, torch.bfloat16, "cuda")
+    tokens = torch.randint(0, cfg.vocab, (LM_CPU_BATCH, LM_CPU_PROMPT + LM_CPU_DECODE),
+                           generator=gen, device="cuda")
+    cache_len = LM_CPU_PROMPT + LM_CPU_DECODE
+    results = {}
+    for device in ("cuda", "cpu"):
+        p = params if device == "cuda" else _to(params, "cpu")
+        toks = tokens.to(device)
+        logits, cache = lm.prefill(p, small, {"tokens": toks[:, :LM_CPU_PROMPT]}, cache_len)
+        outs = [logits]
+        for i in range(LM_CPU_DECODE):
+            pos = torch.full((LM_CPU_BATCH,), LM_CPU_PROMPT + i, dtype=torch.long,
+                             device=device)
+            logits, cache = lm.decode_step(
+                p, small, cache, {"tokens": toks[:, LM_CPU_PROMPT + i]}, pos)
+            outs.append(logits)
+        results[device] = torch.stack(outs).float().cpu()
+        del p, cache
+    del params
+    torch.cuda.empty_cache()
+    card, cpu = results["cuda"], results["cpu"]
+    check(bool(torch.isfinite(card).all()), f"{name}: finite card logits")
+    rel = _rel_l2(card, cpu)
+    top1 = _top1(card, cpu)
+    check(rel <= CARD_CPU_REL_L2,
+          f"{name}: 2-layer card vs CPU logits rel L2 {rel:.3g} > {CARD_CPU_REL_L2}")
+    print(f"[lm] {name}: card vs CPU, {LM_CPU_LAYERS} layers at full width, "
+          f"B={LM_CPU_BATCH} S={LM_CPU_PROMPT} + {LM_CPU_DECODE} decode: logits "
+          f"rel L2 {rel:.3g} (<= {CARD_CPU_REL_L2}), top-1 agree {top1:.2f}")
+    return {"rel_l2": rel, "top1": top1}
+
+
+def _on_card(prof) -> tuple[float, int, list]:
+    """Card time (us) in a profiler window, the number of kernels and
+    copies the card ran, and the top ones by card time."""
+    rows = [
+        (e.self_device_time_total, e.count, e.key)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    return (sum(t for t, _, _ in rows), sum(n for _, n, _ in rows),
+            sorted(rows, reverse=True)[:5])
+
+
+def profile_lm(cfg, params, tokens) -> dict:
+    """The prefill and the decode steps again, each under its own PyTorch
+    profiler window: the card's time in each and its top kernels. The
+    profiler slows the host, not the card, so the card's share of each
+    phase is taken against that phase's time measured without it."""
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    B, S = tokens.shape
+    with profile(activities=acts) as prof:
+        logits, cache = make_prefill_step(cfg, LM_CACHE_LEN)(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    prefill_us, prefill_n, prefill_top = _on_card(prof)
+    serve_step = make_serve_step(cfg)
+    nxt = logits.argmax(-1)
+    with profile(activities=acts) as prof:
+        for i in range(LM_NEW_TOKENS):
+            pos = torch.full((B,), S + i, dtype=torch.long, device=tokens.device)
+            step_logits, cache = serve_step(params, cache, {"tokens": nxt}, pos)
+            nxt = step_logits.argmax(-1)
+        torch.cuda.synchronize()
+    decode_us, decode_n, decode_top = _on_card(prof)
+    return {"prefill_us": prefill_us, "prefill_n": prefill_n,
+            "prefill_top": prefill_top, "decode_us": decode_us,
+            "decode_n": decode_n, "decode_top": decode_top}
+
+
+def phase_lm(name: str, seed: int) -> dict:
+    """Serve one model at full width and depth; returns its numbers and
+    the main path's launch counts."""
+    cfg = load_config(name)
+    n_attn = sum(m == "attn" for m, _ in cfg.layer_plan())
+    n_rwkv = sum(m == "rwkv" for m, _ in cfg.layer_plan())
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = lm.init_params(gen, cfg, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    print(f"[lm] {name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{param_count(params) / 1e9:.3f} B parameters, "
+          f"{param_bytes(params) / 1e9:.2f} GB bf16, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen,
+                           device="cuda")
+    # warm-up (cuBLAS handles, kernel libraries), not counted
+    serve_lm(cfg, params, tokens[:, :64], 64 + 2, 2)
+
+    reset_counts()  # the main path starts here
+    logits, steps, out, t_prefill, t_decode = serve_lm(
+        cfg, params, tokens, LM_CACHE_LEN, LM_NEW_TOKENS)
+    launched = counts()
+    check(launched["flash_attention"] == n_attn,
+          f"{name}: {launched['flash_attention']} flash launches, want {n_attn}")
+    check(launched["rwkv6_scan"] == n_rwkv,
+          f"{name}: {launched['rwkv6_scan']} WKV-6 launches, want {n_rwkv}")
+    check(launched["preemptible_matmul_window"] == 0, f"{name}: no window launches")
+    check(bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(s).all()) for s in steps), f"{name}: finite logits")
+    check(tuple(out.shape) == (LM_BATCH, LM_NEW_TOKENS)
+          and int(out.min()) >= 0 and int(out.max()) < cfg.vocab,
+          f"{name}: generated tokens in the vocabulary")
+    print(f"[lm] {name}: main path launches {launched} (prefill: one flash per "
+          f"attention layer, one WKV-6 per time-mix layer; decode: none)")
+
+    # decode at step S against a prefill over the S+1 tokens
+    longer = torch.cat([tokens, out[:, :1]], dim=1)
+    want, _ = make_prefill_step(cfg, LM_PROMPT + 1)(params, {"tokens": longer})
+    rel = _rel_l2(steps[0], want)
+    top1 = _top1(steps[0], want)
+    check(rel <= CONSIST_REL_L2 and top1 >= CONSIST_TOP1,
+          f"{name}: decode vs longer prefill rel L2 {rel:.3g}, top-1 {top1:.2f}")
+    print(f"[lm] {name}: decode at step {LM_PROMPT} vs prefill over "
+          f"{LM_PROMPT + 1}: rel L2 {rel:.3g} (<= {CONSIST_REL_L2}), top-1 "
+          f"agree {top1:.2f} (>= {CONSIST_TOP1})")
+
+    prof = profile_lm(cfg, params, tokens)
+    del params, logits, steps
+    torch.cuda.empty_cache()
+    ms_token = t_decode / LM_NEW_TOKENS * 1e3
+    print(f"[lm] {name}: prefill {t_prefill * 1e3:.3f} ms "
+          f"({LM_BATCH * LM_PROMPT / t_prefill:.1f} prompt tokens/s), decode "
+          f"{ms_token:.3f} ms per step ({LM_BATCH / (t_decode / LM_NEW_TOKENS):.1f} "
+          f"tokens/s at batch {LM_BATCH})")
+    busy = {}
+    for phase, wall_ms, n in (("prefill", t_prefill * 1e3, 1),
+                              ("decode", ms_token, LM_NEW_TOKENS)):
+        card_ms = prof[f"{phase}_us"] / 1e3 / n
+        if card_ms == 0:
+            print(f"[lm] {name}: {phase} card time not measured "
+                  "(profiler saw no card time)")
+            busy[phase] = None
+            continue
+        busy[phase] = card_ms / wall_ms
+        print(f"[lm] {name}: {phase} card busy {card_ms:.3f} ms of "
+              f"{wall_ms:.3f} ms{' per step' if n > 1 else ''} "
+              f"({busy[phase] * 100:.2f}%) in {prof[f'{phase}_n'] / n:g} "
+              f"kernels and copies; top:")
+        for t_us, cnt, key in prof[f"{phase}_top"]:
+            print(f"[lm]   {t_us / 1e3 / n:.3f} ms in {cnt / n:g} x {key[:70]}")
+    cpu = card_vs_cpu(name, cfg, seed + 1)
+    return {
+        "launches": launched, "prefill_ms": t_prefill * 1e3,
+        "decode_ms_per_step": ms_token, "busy_share": busy,
+        "consistency_rel_l2": rel, "card_vs_cpu": cpu,
+    }
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -454,31 +846,46 @@ def card_line() -> str:
     return out[0]
 
 
+def kernel_entry(name, source, replaces, launches, row) -> dict:
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            **{k: row[k] for k in keys}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     torch.cuda.set_device(0)
+    print(f"[card] {card_line()}")  # every number below was taken on it
     phase_build()
     rows, head = phase_kernel()
     launches = phase_serve()
     phase_wall()
-    kernel = {
-        "name": "preemptible_matmul_window",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/preemptible_matmul.cu",
-        "replaces": "src/repro/kernels/preemptible_matmul/kernel.py:36",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "float32"),
-        "ms": head["ms"],
-        "launch_ms": head["launch_ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "shape": {k: head[k] for k in ("M", "K", "N", "window", "dtype")},
-    }
-    print(json.dumps({"kernels": [kernel]}))
+    flash_row, wkv_row = phase_lm_kernels()
+    lm_runs = {name: phase_lm(name, seed=100 + i) for i, name in enumerate(LM_MODELS)}
+    pmm = kernel_entry(
+        "preemptible_matmul_window", "src/repro_torch/csrc/preemptible_matmul.cu",
+        "src/repro/kernels/preemptible_matmul/kernel.py:36", launches,
+        dict(head, max_abs_err=max(
+            r["max_abs_err"] for r in rows if r["dtype"] == "float32")),
+    )
+    pmm.update(launch_ms=head["launch_ms"],
+               shape={k: head[k] for k in ("M", "K", "N", "window", "dtype")})
+    flash = kernel_entry(
+        "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:32",
+        lm_runs["mistral_nemo_12b"]["launches"]["flash_attention"], flash_row,
+    )
+    flash["shape"] = {k: flash_row[k] for k in ("B", "S", "H", "Hkv", "hd", "dtype")}
+    wkv = kernel_entry(
+        "rwkv6_scan", "src/repro_torch/csrc/rwkv6_scan.cu",
+        "src/repro/kernels/rwkv6_scan/kernel.py:29",
+        lm_runs["rwkv6_7b"]["launches"]["rwkv6_scan"], wkv_row,
+    )
+    wkv["shape"] = {k: wkv_row[k] for k in ("B", "S", "H", "hd", "dtype")}
+    print(json.dumps({"kernels": [pmm, flash, wkv]}))
     print(card_line())
     print(json.dumps({
         "ok": True,

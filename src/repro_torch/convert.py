@@ -5,7 +5,7 @@ Each function reads the source object only through plain fields and
 fields and never imports the JAX package. It builds this package's
 own objects: workloads and task sets for the exec model, design points
 for the stage split and cost model, serve tasks and server inputs as
-tensors on a chosen device.
+tensors on a chosen device, and LM parameters and decode caches.
 """
 from __future__ import annotations
 
@@ -91,3 +91,46 @@ def serve_task_from(src, *, device="cuda") -> ServeTask:
         deadline=src.deadline,
         input_rows=src.input_rows,
     )
+
+
+def _lm_tensor(arr, device) -> torch.Tensor:
+    """One array as a tensor of the same dtype. A bfloat16 array (the
+    ``ml_dtypes`` type JAX hands to numpy, which torch does not take) is
+    carried bit for bit through uint16."""
+    a = np.ascontiguousarray(np.asarray(arr))
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+def _unstack_layers(stacked, n_layers, device):
+    """Per-pattern dicts of (n_repeats, ...) arrays -> one dict per layer
+    (layer ``rep * len(pattern) + j`` is repeat ``rep`` of entry ``j``)."""
+    n_pat = len(stacked)
+
+    def take(tree, rep):
+        if isinstance(tree, dict):
+            return {k: take(v, rep) for k, v in tree.items()}
+        return _lm_tensor(np.asarray(tree)[rep], device)
+
+    return [take(stacked[i % n_pat], i // n_pat) for i in range(n_layers)]
+
+
+def lm_params_from(params, cfg, *, device="cuda"):
+    """The JAX package's LM parameters (a pytree of arrays with a leading
+    repeats axis per pattern entry, as ``repro.models.lm.init_params``
+    makes them) as this package's per-layer parameters on ``device``,
+    same values and dtypes."""
+    out = {
+        k: _lm_tensor(v, device) for k, v in params.items() if k != "blocks"
+    }
+    out["blocks"] = _unstack_layers(params["blocks"], cfg.n_layers, device)
+    return out
+
+
+def lm_cache_from(cache, cfg, *, device="cuda"):
+    """The JAX package's decode cache (per pattern entry, leading repeats
+    axis) as this package's per-layer cache list on ``device``."""
+    return _unstack_layers(cache, cfg.n_layers, device)

@@ -14,6 +14,14 @@ Kernels:
 - ``preemptible_matmul`` — the paper's §3.4 tile-granular preemption
   mechanism: a window of output tiles accumulated into a resident fp32
   buffer, resumable from a flat tile index.
+- ``flash_attention`` — causal GQA attention with an online softmax,
+  every attention layer of an LM prefill.
+- ``rwkv6_scan`` — the RWKV-6 WKV recurrence, every time-mix layer of
+  an RWKV-6 prefill.
+
+``flash_attention`` and ``rwkv6_scan`` are imported from their own
+packages: a function of the same name here would hide the subpackage
+from ``import repro_torch.kernels.flash_attention.kernel as ...``.
 """
 from repro_torch.kernels.preemptible_matmul import (
     MatmulProgress,

@@ -107,7 +107,9 @@ def test_percentile_summary_matches_reference():
 
 
 def test_kernel_build_is_content_addressed():
-    assert _build.source_names() == ["preemptible_matmul"]
+    assert _build.source_names() == [
+        "flash_attention", "preemptible_matmul", "rwkv6_scan"
+    ]
     path = _build.library_path("preemptible_matmul")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libpreemptible_matmul-") and path.suffix == ".so"

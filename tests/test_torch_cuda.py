@@ -1,5 +1,5 @@
-"""The preemptible-matmul CUDA kernel against its plain version, on the
-card. Marked ``cuda``; each test skips, with its reason, where no card
+"""The port's CUDA kernels (preemptible matmul, flash attention, WKV-6)
+against their plain versions, on the card. Marked ``cuda``; each test skips, with its reason, where no card
 is visible. Imports neither JAX nor the JAX package, so it runs where
 only PyTorch is installed::
 
@@ -7,19 +7,31 @@ only PyTorch is installed::
 
 Tolerances: fp32 differs from the plain version only in summation order
 (max rel err 1e-5); bf16 inputs are upcast identically on both sides
-(2e-2, as the reference's bf16 tests).
+(2e-2, as the reference's bf16 tests). Flash attention: the kernel and
+the plain version both keep fp32 statistics and differ in summation
+order and the online rescale; each output element is held to its own
+size, |got - want| <= rtol |want| + floor rms(want), with (rtol, floor)
+from ``flash_attention.ref.KERNEL_TOL``: (1e-5, 1e-4) for fp32 and
+(2^-7, 1e-3) for bf16, one bf16 ulp of each value.
+WKV-6: the kernel's exact step-by-step recurrence against the plain
+chunked form, whose ``k / prod(w)`` rescale loses a few more digits
+(1e-4 of the max, as the reference's own kernel test).
 """
 import math
 
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention.kernel import flash_attention_call
+from repro_torch.kernels.flash_attention.ref import attention_plain, tol_ratio
 from repro_torch.kernels.preemptible_matmul import grid_geometry, matmul_resumable
 from repro_torch.kernels.preemptible_matmul.kernel import matmul_window_call
 from repro_torch.kernels.preemptible_matmul.ref import (
     matmul_ref,
     matmul_window_plain,
 )
+from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_call
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_plain
 
 BLOCK = (128, 128, 128)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -78,3 +90,74 @@ def test_kernel_refuses_blocks_it_does_not_take(card):
     with pytest.raises(ValueError, match="block"):
         matmul_window_call(0, a, a, a.clone(), block=(64, 64, 64), window=1,
                            n_tiles_n=1, k_steps=1)
+
+
+def _qkv(card, B, S, H, Hkv, hd, dtype, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((B, S, H, hd), generator=gen, device=card).to(dtype)
+    k = torch.randn((B, S, Hkv, hd), generator=gen, device=card).to(dtype)
+    v = torch.randn((B, S, Hkv, hd), generator=gen, device=card).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,H,Hkv,hd,causal",
+    [(2, 256, 32, 8, 128, True), (1, 1000, 4, 4, 64, True),
+     (2, 77, 8, 1, 128, True), (1, 200, 4, 2, 64, False)],
+)
+def test_flash_kernel_matches_plain(card, dtype, B, S, H, Hkv, hd, causal):
+    q, k, v = _qkv(card, B, S, H, Hkv, hd, dtype, S + H)
+    before = flash_attention_call.launches
+    got = flash_attention_call(q, k, v, causal=causal)
+    assert flash_attention_call.launches == before + 1
+    want = attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert tol_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_other_head_widths(card):
+    q, k, v = _qkv(card, 1, 64, 2, 2, 96, torch.bfloat16, 0)
+    before = flash_attention_call.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_call(q, k, v)
+    assert flash_attention_call.launches == before
+
+
+def _wkv_inputs(card, B, S, H, hd, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    r = torch.randn((B, S, H, hd), generator=gen, device=card)
+    k = torch.randn((B, S, H, hd), generator=gen, device=card) * 0.3
+    v = torch.randn((B, S, H, hd), generator=gen, device=card)
+    logit = torch.randn((B, S, H, hd), generator=gen, device=card).clamp(-8, -1)
+    w = torch.exp(-torch.exp(logit))
+    u = torch.randn((H, hd), generator=gen, device=card) * 0.1
+    return r, k, v, w, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H", [(2, 256, 8), (1, 1000, 4), (1, 37, 2)])
+def test_wkv6_kernel_matches_plain(card, B, S, H):
+    r, k, v, w, u = _wkv_inputs(card, B, S, H, 64, S)
+    before = rwkv6_scan_call.launches
+    y, s_final = rwkv6_scan_call(r, k, v, w, u)
+    assert rwkv6_scan_call.launches == before + 1
+    y_want, s_want = rwkv6_scan_plain(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert _rel(y, y_want) <= 1e-4
+    assert _rel(s_final, s_want) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_refuses_what_it_does_not_take(card):
+    r, k, v, w, u = _wkv_inputs(card, 1, 16, 2, 32, 0)
+    before = rwkv6_scan_call.launches
+    with pytest.raises(ValueError, match="head size"):
+        rwkv6_scan_call(r, k, v, w, u)
+    r, k, v, w, u = _wkv_inputs(card, 1, 16, 2, 64, 0)
+    with pytest.raises(ValueError, match="float32"):
+        rwkv6_scan_call(r.bfloat16(), k, v, w, u)
+    assert rwkv6_scan_call.launches == before

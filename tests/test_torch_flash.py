@@ -1,0 +1,147 @@
+"""The port's flash attention against the JAX package's, on the CPU.
+
+Inputs are made with numpy from a seed and handed to both packages. The
+JAX side runs as its own tests run it (the Pallas kernel in interpret
+mode, and its materialised oracle ``attention_ref``); the port's side is
+its plain version, which is what its wrapper takes for CPU tensors.
+Causal only, as the LM path uses it; MHA and GQA; sequence lengths that
+64 does not divide (the CUDA kernel's block), and one that it does.
+
+Tolerances: element by element, |got - want| <= rtol |want| + floor
+rms(want), the measure the CUDA kernel is held to on the card
+(``flash_attention.ref.tol_ratio``). In float32 both sides compute the
+same fp32 softmax in another summation order: (1e-5, 1e-4). In bfloat16
+both keep fp32 statistics and round the output to bf16 once, so they
+differ by at most one bf16 ulp of each value: (2^-7, 1e-3).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as ref_flash
+from repro.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.kernel import flash_attention_call
+from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_plain, tol_ratio
+
+torch.set_num_threads(1)
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _as_torch(jx, dtype):
+    """A JAX output as a CPU tensor of the test's dtype (exact)."""
+    return torch.from_numpy(np.asarray(jx.astype(jnp.float32))).to(DTYPES[dtype][1])
+
+
+def _pair(shape, seed, dtype):
+    """The same values as a JAX array and a CPU tensor (bf16 rounding is
+    done once, by JAX, and carried across exactly)."""
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    jx = jnp.asarray(x, DTYPES[dtype][0])
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(DTYPES[dtype][1])
+    return jx, tx
+
+
+def _qkv(B, S, H, Hkv, hd, dtype, seed=0):
+    q = _pair((B, S, H, hd), seed, dtype)
+    k = _pair((B, S, Hkv, hd), seed + 1, dtype)
+    v = _pair((B, S, Hkv, hd), seed + 2, dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "S,H,Hkv", [(72, 4, 4), (100, 8, 2), (120, 4, 1), (64, 4, 2)]
+)
+def test_plain_matches_pallas_kernel_and_oracle(dtype, S, H, Hkv):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(2, S, H, Hkv, 32, dtype, seed=S + H)
+    got = flash_attention(tq, tk, tv)
+    assert got.shape == (2, S, H, 32)
+    assert tol_ratio(got, _as_torch(ref_flash(jq, jk, jv), dtype)) <= 1.0
+    assert tol_ratio(got, _as_torch(attention_ref(jq, jk, jv), dtype)) <= 1.0
+
+
+def _online_softmax(q, k, v, block=64):
+    """Causal GQA attention in the CUDA kernel's order: 64-row query
+    blocks sweep 64-row K/V blocks to the diagonal with a running max,
+    sum and accumulator in fp32, and the output rounds once at the end."""
+    B, S, H, hd = q.shape
+    group = H // k.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.empty((B, S, H, hd))
+    for h in range(H):
+        kh, vh = kf[:, :, h // group], vf[:, :, h // group]
+        for q0 in range(0, S, block):
+            qb = qf[:, q0:q0 + block, h]
+            rows = torch.arange(q0, q0 + qb.shape[1])[:, None]
+            m = torch.full(qb.shape[:2], NEG_INF)
+            l = torch.zeros(qb.shape[:2])
+            acc = torch.zeros(qb.shape)
+            for k0 in range(0, q0 + qb.shape[1], block):
+                s = torch.einsum("bqd,bkd->bqk", qb, kh[:, k0:k0 + block]) * hd**-0.5
+                cols = torch.arange(k0, k0 + s.shape[2])[None]
+                s = s.masked_fill(cols > rows, NEG_INF)
+                m_new = torch.maximum(m, s.amax(-1))
+                p = torch.exp(s - m_new[..., None])
+                alpha = torch.exp(m - m_new)
+                l = alpha * l + p.sum(-1)
+                acc = alpha[..., None] * acc + torch.einsum(
+                    "bqk,bkd->bqd", p, vh[:, k0:k0 + block])
+                m = m_new
+            out[:, q0:q0 + block, h] = acc / l[..., None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_tolerance_passes_online_order_and_catches_late_rows(dtype):
+    """The card's measure accepts the kernel's own arithmetic (an online
+    softmax over 64-row blocks) and refuses a kernel that is 2% wrong on
+    the later half of the rows, whose values are far smaller than row 0's
+    (the largest |want| is row 0 = v[0] under causal attention)."""
+    (_, tq), (_, tk), (_, tv) = _qkv(1, 600, 2, 1, 64, dtype, seed=11)
+    want = attention_plain(tq, tk, tv)
+    got = _online_softmax(tq, tk, tv)
+    assert tol_ratio(got, want) <= 1.0
+    wrong = got.float()
+    wrong[:, 300:] *= 1.02
+    assert tol_ratio(wrong.to(want.dtype), want) > 1.0
+
+
+def test_output_keeps_q_dtype_and_head_mapping():
+    """Query head h reads KV head h // (H // Hkv): with one KV head per
+    group made distinct, each group of query heads sees only its own."""
+    (_, tq), (_, tk), (_, tv) = _qkv(1, 40, 6, 3, 16, "bfloat16", seed=3)
+    out = flash_attention(tq, tk, tv)
+    assert out.dtype == torch.bfloat16
+    for h in range(6):
+        kv = h // 2
+        one = attention_plain(tq[:, :, h:h + 1], tk[:, :, kv:kv + 1],
+                              tv[:, :, kv:kv + 1])
+        assert torch.equal(out[:, :, h:h + 1], one)
+
+
+def test_causal_rows_ignore_the_future():
+    (_, tq), (_, tk), (_, tv) = _qkv(1, 50, 2, 2, 16, "float32", seed=5)
+    full = flash_attention(tq, tk, tv)
+    tk2, tv2 = tk.clone(), tv.clone()
+    tk2[:, 30:] = 7.0
+    tv2[:, 30:] = -7.0
+    part = flash_attention(tq, tk2, tv2)
+    assert torch.allclose(full[:, :30], part[:, :30], rtol=0, atol=0)
+    assert not torch.allclose(full[:, 30:], part[:, 30:])
+
+
+def test_cpu_wrapper_counts_nothing_and_checks_shapes():
+    (_, tq), (_, tk), (_, tv) = _qkv(1, 16, 4, 2, 16, "float32")
+    before = flash_attention_call.launches
+    flash_attention_call(tq, tk, tv)
+    assert flash_attention_call.launches == before
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention_call(tq, tk[:, :, :1].expand(-1, -1, 3, -1), tv[:, :, :1].expand(-1, -1, 3, -1))
+    with pytest.raises(ValueError, match="disagree"):
+        flash_attention_call(tq, tk[:, :8], tv)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_call(tq.double(), tk.double(), tv.double())
