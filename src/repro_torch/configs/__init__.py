@@ -10,7 +10,7 @@ import importlib
 from repro_torch.configs.base import ArchConfig, smoke_config
 
 #: the configurations this package serves (module names)
-CONFIG_NAMES = ("mistral_nemo_12b", "rwkv6_7b")
+CONFIG_NAMES = ("mistral_nemo_12b", "rwkv6_7b", "jamba_v0_1_52b")
 
 
 def load_config(name: str) -> ArchConfig:

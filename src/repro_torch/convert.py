@@ -132,5 +132,7 @@ def lm_params_from(params, cfg, *, device="cuda"):
 
 def lm_cache_from(cache, cfg, *, device="cuda"):
     """The JAX package's decode cache (per pattern entry, leading repeats
-    axis) as this package's per-layer cache list on ``device``."""
+    axis) as this package's per-layer cache list on ``device``, in each
+    entry's own dtype (int8 K/V codes and bf16 scales of an int8 cache
+    included)."""
     return _unstack_layers(cache, cfg.n_layers, device)

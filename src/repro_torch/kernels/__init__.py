@@ -18,9 +18,11 @@ Kernels:
   every attention layer of an LM prefill.
 - ``rwkv6_scan`` — the RWKV-6 WKV recurrence, every time-mix layer of
   an RWKV-6 prefill.
+- ``mamba_scan`` — the selective scan, every mamba layer of a Jamba
+  prefill.
 
-``flash_attention`` and ``rwkv6_scan`` are imported from their own
-packages: a function of the same name here would hide the subpackage
+``flash_attention``, ``rwkv6_scan`` and ``mamba_scan`` are imported from
+their own packages: a function of the same name here would hide the subpackage
 from ``import repro_torch.kernels.flash_attention.kernel as ...``.
 """
 from repro_torch.kernels.preemptible_matmul import (

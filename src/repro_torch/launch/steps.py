@@ -2,9 +2,10 @@
 counterparts of ``repro.launch.steps.make_prefill_step`` and
 ``make_serve_step``).
 
-PyTorch runs eagerly, so a step is a plain closure over the config; the
-JAX package's sharding policy, remat switch and int8 KV cache have no
-counterpart on one card.
+PyTorch runs eagerly, so a step is a plain closure over the config. The
+serve step takes the JAX package's int8 KV cache variant (``kv_quant``);
+its sharding policy and remat switch do nothing on one card and return
+with distribution.
 """
 from __future__ import annotations
 
@@ -22,11 +23,12 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int):
     return prefill_step
 
 
-def make_serve_step(cfg: ArchConfig):
-    """(params, cache, inputs, pos) -> (logits, cache)."""
+def make_serve_step(cfg: ArchConfig, *, kv_quant: bool = False):
+    """(params, cache, inputs, pos) -> (logits, cache); with ``kv_quant``
+    the cache's attention layers are int8 with bf16 scales."""
     lm.check_supported(cfg)
 
     def serve_step(params, cache, inputs, pos):
-        return lm.decode_step(params, cfg, cache, inputs, pos)
+        return lm.decode_step(params, cfg, cache, inputs, pos, kv_quant=kv_quant)
 
     return serve_step

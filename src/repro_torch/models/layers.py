@@ -1,6 +1,7 @@
-"""Transformer building blocks: RMSNorm, RoPE, GQA attention, MLP (the
-counterpart of ``repro.models.layers``, restricted to what the dense and
-RWKV models use; MoE and the int8 KV cache come with a later slice).
+"""Transformer building blocks: RMSNorm, RoPE, GQA attention with a bf16
+or int8 KV cache, MLP and dropless MoE (the counterpart of
+``repro.models.layers``; the GShard capacity MoE, which the reference
+takes only under an SPMD sharding policy, comes with distribution).
 
 Conventions
 -----------
@@ -12,6 +13,9 @@ Conventions
   the hand-written CUDA kernel on the card, its plain fp32 version on
   the CPU. KV heads are handed over as they are; the kernel maps query
   head ``h`` to KV head ``h // (H // Hkv)``.
+- MoE is sort-based and dropless: per top-k slot, tokens are permuted
+  into expert order and each non-empty expert's contiguous rows go
+  through its own products, the counterpart of ``jax.lax.ragged_dot``.
 """
 from __future__ import annotations
 
@@ -146,6 +150,58 @@ def attention_decode(p, x, cfg, cache, pos):
     return x + out @ p["wo"], {"k": k_cache, "v": v_cache}
 
 
+def quantize_kv(k):
+    """Symmetric int8 over the last axis; returns (q8, scale bf16)."""
+    kf = k.float()
+    scale = torch.clamp_min(kf.abs().amax(dim=-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(kf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def attention_decode_q8(p, x, cfg, cache, pos):
+    """One-token decode over an int8 KV cache.
+
+    cache: {"k", "v": int8 (B, kv, S_max, hd), "k_scale", "v_scale": bf16
+    (B, kv, S_max)}, per-(token, head) symmetric scales. The new token's
+    codes and scales are written **in place** at ``pos``, as in
+    `attention_decode` (the reference adds a one-hot to the zero slot,
+    which gives the same values). The scales commute with the hd and S
+    contractions, so they multiply the (B, kv, g, S) scores and
+    probabilities and the cache is never dequantized. As in the
+    reference, q and the probabilities enter the products rounded to
+    bf16 and the products accumulate and return in fp32. The reference
+    asks XLA for bf16 operands with an fp32 result; PyTorch has that
+    form on the card only, so here the int8 codes are widened to fp32 as
+    the operands of the two products (exact: they are integers up to
+    127), a transient buffer of the codes, not of dequantized values.
+    """
+    B = x.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    q, k_new, v_new = _qkv(p, xn, cfg, pos[:, None])
+    kq, ks = quantize_kv(k_new[:, 0])  # (B, kv, hd), (B, kv)
+    vq, vs = quantize_kv(v_new[:, 0])
+    rows = torch.arange(B, device=x.device)
+    cache["k"][rows, :, pos] = kq
+    cache["v"][rows, :, pos] = vq
+    cache["k_scale"][rows, :, pos] = ks
+    cache["v_scale"][rows, :, pos] = vs
+    S_max = cache["k"].shape[2]
+    groups = h // kv
+    qr = q.reshape(B, kv, groups, hd).to(torch.bfloat16).float()
+    scores = torch.einsum("bkgh,bksh->bkgs", qr, cache["k"].float())
+    scores = scores * cache["k_scale"].float()[:, :, None, :]
+    scores = scores * hd**-0.5
+    valid = torch.arange(S_max, device=x.device)[None, :] <= pos[:, None]
+    scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    probs = probs * cache["v_scale"].float()[:, :, None, :]
+    out = torch.einsum("bkgs,bksh->bkgh", probs.to(torch.bfloat16).float(),
+                       cache["v"].float()).to(x.dtype)
+    out = out.reshape(B, 1, h * hd)
+    return x + out @ p["wo"], cache
+
+
 # ---------------------------------------------------------------------------
 # dense MLP
 # ---------------------------------------------------------------------------
@@ -170,3 +226,83 @@ def mlp(p, x, cfg):
     else:
         hmid = F.gelu(xn @ p["w_in"], approximate="tanh")
     return x + hmid @ p["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (sort + grouped products, dropless)
+# ---------------------------------------------------------------------------
+def moe_init(gen, cfg, dtype=torch.bfloat16, *, device="cuda"):
+    """Router (d, E) in fp32 and expert banks (E_store, d_in, d_out)
+    truncated normal / sqrt(d_in). ``E_store = max(E, expert_pad_to)``:
+    padded banks are stored and never routed to."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    e_store = max(e, cfg.expert_pad_to or 0)
+
+    def expert_mat(d_in, d_out):
+        w = torch.empty((e_store, d_in, d_out), dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return (w / d_in**0.5).to(dtype)
+
+    p = {
+        "router": dense_init(gen, d, e, torch.float32, device=device),
+        "w_in": expert_mat(d, f),
+        "w_out": expert_mat(f, d),
+        "norm": ones((d,), dtype, device=device),
+    }
+    if cfg.mlp_type == "swiglu":
+        p["w_gate"] = expert_mat(d, f)
+    return p
+
+
+def _expert_ffn(p, j, rows, cfg):
+    """Expert ``j``'s FFN on its contiguous rows."""
+    if cfg.mlp_type == "swiglu":
+        hmid = F.silu(rows @ p["w_gate"][j]) * (rows @ p["w_in"][j])
+    else:
+        hmid = F.gelu(rows @ p["w_in"][j], approximate="tanh")
+    return hmid @ p["w_out"][j]
+
+
+def moe_dropless(p, x, cfg):
+    """Top-k MoE over tokens, exactly dropless.
+
+    fp32 router, top-k, softmax over the k gates. For each slot in
+    order: a stable argsort of the tokens by expert, group sizes as
+    ``bincount(minlength=E_store)`` gives them, one product chain per
+    non-empty expert over its contiguous rows, then unpermute and weight
+    by the gate; slots are summed in order into zeros of x's dtype. The
+    group sizes of all slots are counted on the device with one
+    ``scatter_add_`` (``torch.bincount`` on a CUDA tensor would first
+    read the largest expert id back to the host) and read back to the
+    host once per call (``moe_dropless.host_reads`` counts the reads).
+    """
+    B, S, d = x.shape
+    k = cfg.top_k
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    flat = xn.reshape(B * S, d)
+    logits = flat.float() @ p["router"]  # (T, E)
+    gates, experts = torch.topk(logits, k, dim=-1)  # (T, k)
+    gates = torch.softmax(gates, dim=-1)
+    e_store = p["w_in"].shape[0]
+    ids = experts.T  # (k, T)
+    sizes = torch.zeros((k, e_store), dtype=ids.dtype, device=ids.device)
+    sizes = sizes.scatter_add_(1, ids, torch.ones_like(ids)).tolist()
+    moe_dropless.host_reads += 1
+    out = torch.zeros_like(flat)
+    for slot in range(k):
+        order = torch.argsort(experts[:, slot], stable=True)  # tokens by expert
+        xs = flat[order]
+        ys = torch.empty_like(xs)
+        start = 0
+        for j, n in enumerate(sizes[slot]):
+            if n:
+                ys[start : start + n] = _expert_ffn(p, j, xs[start : start + n], cfg)
+                start += n
+        unperm = torch.empty_like(ys)
+        unperm[order] = ys
+        out = out + unperm * gates[:, slot, None].to(ys.dtype)
+    return x + out.reshape(B, S, d)
+
+
+#: group-size read-backs to the host since the count was last set to 0
+moe_dropless.host_reads = 0

@@ -108,7 +108,7 @@ def test_percentile_summary_matches_reference():
 
 def test_kernel_build_is_content_addressed():
     assert _build.source_names() == [
-        "flash_attention", "preemptible_matmul", "rwkv6_scan"
+        "flash_attention", "mamba_scan", "preemptible_matmul", "rwkv6_scan"
     ]
     path = _build.library_path("preemptible_matmul")
     assert path.parent == _build.BUILD_DIR
