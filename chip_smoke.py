@@ -44,8 +44,8 @@ Phases, each printing what it finds; any failure exits non-zero:
              kernels' launch counts (one flash per attention layer, one
              WKV per time-mix layer and one scan per mamba layer per
              prefill, none in decode), decode against a longer prefill
-             (for Jamba also sublayer by sublayer, and an int8-KV decode
-             step against the bf16 one), a 2-layer full-width model
+             (for Jamba also an int8-KV decode step against the bf16
+             one), a 2-layer full-width model
              against the port's own CPU run of the same weights and
              tokens, and the times under the PyTorch profiler with the
              card's busy share.
@@ -106,7 +106,6 @@ from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_plain  # noqa: E402
 from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.models import ssm as M  # noqa: E402
 from repro_torch.models.module import param_bytes, param_count  # noqa: E402
 from repro_torch.pipeline import PharosServer, design_to_segments  # noqa: E402
 from repro_torch.pipeline.serve import window_plan  # noqa: E402
@@ -493,9 +492,10 @@ def phase_wall() -> None:
 # LM serving path: flash attention, WKV-6, the selective scan,
 # Mistral-NeMo-12B, RWKV-6-7B, Jamba-v0.1-52B
 # ---------------------------------------------------------------------------
-#: served one after the other: (config, layers served; None = all)
-LM_MODELS = (("mistral_nemo_12b", None), ("rwkv6_7b", None),
-             ("jamba_v0_1_52b", 16))
+#: served one after the other: (config, layers served (None = all),
+#: whether its int8-KV decode step is held against the bf16 one)
+LM_MODELS = (("mistral_nemo_12b", None, False), ("rwkv6_7b", None, False),
+             ("jamba_v0_1_52b", 16, True))
 LM_BATCH, LM_PROMPT, LM_NEW_TOKENS = 2, 2048, 16
 LM_CACHE_LEN = LM_PROMPT + LM_NEW_TOKENS
 #: card against the port's own CPU run: a 2-layer model at full width
@@ -522,18 +522,6 @@ CARD_CPU_REL_L2 = 3e-2
 #: chunked scan: the reference's own tolerance between its kernel and
 #: its oracle
 SCAN_MAX_REL_ERR = 1e-4
-#: Jamba's decode vs a longer prefill is also held sublayer by sublayer:
-#: each mixer's and ffn's decode step on the input the longer prefill
-#: gives it at position S, against that prefill's output there. Each
-#: output is the bf16 sum of the sublayer's input x and its contribution
-#: c, which both sides round, so they may differ by one bf16 ulp of x
-#: (2^-8 relative) whatever c is; beyond that the contribution is held at
-#: CONSIST_REL_L2: ||got - want|| <= CONSIST_REL_L2 ||c|| + 2^-8 ||x||.
-#: At the logits the bf16 noise of 16 layers compounds to about the
-#: CONSIST bound, and top-2 routing is discontinuous (a token moved to
-#: another expert changes its logits by tens of percent), so there only
-#: top-1 is held; the relative L2 is printed.
-RESIDUAL_ULP = 2.0**-8
 #: int8-KV decode step vs the bf16 one from the same prefill: the
 #: reference's bounds (tests/test_models.py,
 #: test_int8_kv_decode_close_to_bf16): relative L2 < 0.05.
@@ -847,17 +835,6 @@ def _on_card(prof) -> tuple[float, int, list]:
             sorted(rows, reverse=True)[:5])
 
 
-def _on_host(prof) -> list:
-    """The top host-side operators of a profiler window by their own
-    (self) CPU time: (us, count, name)."""
-    rows = [
-        (e.self_cpu_time_total, e.count, e.key)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0
-    ]
-    return sorted(rows, reverse=True)[:5]
-
-
 def profile_lm(cfg, params, tokens) -> dict:
     """The prefill and the decode steps again, each under its own PyTorch
     profiler window: the card's time in each and its top kernels. The
@@ -869,7 +846,6 @@ def profile_lm(cfg, params, tokens) -> dict:
         logits, cache = make_prefill_step(cfg, LM_CACHE_LEN)(params, {"tokens": tokens})
         torch.cuda.synchronize()
     prefill_us, prefill_n, prefill_top = _on_card(prof)
-    prefill_host_top = _on_host(prof)
     serve_step = make_serve_step(cfg)
     nxt = logits.argmax(-1)
     with profile(activities=acts) as prof:
@@ -880,49 +856,8 @@ def profile_lm(cfg, params, tokens) -> dict:
         torch.cuda.synchronize()
     decode_us, decode_n, decode_top = _on_card(prof)
     return {"prefill_us": prefill_us, "prefill_n": prefill_n,
-            "prefill_top": prefill_top, "prefill_host_top": prefill_host_top,
-            "decode_us": decode_us,
+            "prefill_top": prefill_top, "decode_us": decode_us,
             "decode_n": decode_n, "decode_top": decode_top}
-
-
-def _fmt(worst) -> str:
-    return ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
-
-
-@torch.inference_mode()
-def decode_by_sublayer(cfg, params, tokens, nxt) -> dict:
-    """Teacher forcing sublayer by sublayer: each mixer's and ffn's decode
-    step at position S (from the cache of a prefill over the S prompt
-    tokens, on the input that a prefill over the S+1 tokens gives that
-    sublayer at position S) against that prefill's output there. Returns
-    per kind the worst ratio of ||got - want|| to its limit
-    CONSIST_REL_L2 ||want - x|| + RESIDUAL_ULP ||x||, in fp32."""
-    B, S = tokens.shape
-    _, cache = make_prefill_step(cfg, S + 1)(params, {"tokens": tokens})
-    x = params["embed"][torch.cat([tokens, nxt[:, None]], dim=1)]
-    positions = torch.arange(S + 1, device=x.device).expand(B, S + 1)
-    pos = torch.full((B,), S, dtype=torch.long, device=x.device)
-    worst = {}
-
-    def record(kind, got, x_in, want):
-        got, x_in, want = got.float(), x_in.float(), want.float()
-        limit = CONSIST_REL_L2 * (want - x_in).norm() + RESIDUAL_ULP * x_in.norm()
-        worst[kind] = max(worst.get(kind, 0.0), ((got - want).norm() / limit).item())
-
-    for (mixer, ffn), blk, c in zip(cfg.layer_plan(), params["blocks"], cache):
-        x_in = x[:, S:]
-        if mixer == "attn":
-            x = L.attention(blk["mixer"], x, cfg, positions)
-            got, _ = L.attention_decode(blk["mixer"], x_in, cfg, c, pos)
-        else:
-            x = M.mamba(blk["mixer"], x, cfg)
-            got, _ = M.mamba_decode(blk["mixer"], x_in, cfg, c)
-        record(mixer, got, x_in, x[:, S:])
-        x_in = x[:, S:]
-        ffn_fn = L.moe_dropless if ffn == "moe" else L.mlp
-        x = ffn_fn(blk["ffn"], x, cfg)
-        record(ffn, ffn_fn(blk["ffn"], x_in, cfg), x_in, x[:, S:])
-    return worst
 
 
 def kv_quant_step(cfg, params, tokens, nxt) -> dict:
@@ -953,10 +888,11 @@ def kv_quant_step(cfg, params, tokens, nxt) -> dict:
     return {"rel_l2": rel, "top1": top1}
 
 
-def phase_lm(name: str, seed: int, n_layers=None) -> dict:
+def phase_lm(name: str, seed: int, n_layers=None, kv_quant=False) -> dict:
     """Serve one model at full width, and at full depth unless
-    ``n_layers`` cuts it; returns its numbers and the main path's launch
-    counts."""
+    ``n_layers`` cuts it; with ``kv_quant`` also hold its int8-KV decode
+    step against the bf16 one. Returns its numbers and the main path's
+    launch counts."""
     cfg = load_config(name)
     full = cfg.param_counts()["total"]
     if n_layers is not None:
@@ -1017,34 +953,12 @@ def phase_lm(name: str, seed: int, n_layers=None) -> dict:
     want, _ = make_prefill_step(cfg, LM_PROMPT + 1)(params, {"tokens": longer})
     rel = _rel_l2(steps[0], want)
     top1 = _top1(steps[0], want)
-    extra = {}
-    if n_moe:  # held sublayer by sublayer (see RESIDUAL_ULP's note)
-        worst = decode_by_sublayer(cfg, params, tokens, out[:, 0])
-        print(f"[lm] {name}: decode at step {LM_PROMPT} vs prefill over "
-              f"{LM_PROMPT + 1}: logits rel L2 {rel:.3g}, top-1 agree {top1:.2f} "
-              f"(>= {CONSIST_TOP1}); by sublayer, worst error / limit of each "
-              f"kind {_fmt(worst)} (<= 1; limit {CONSIST_REL_L2} of the "
-              f"contribution + 2^-8 of the input)")
-        check(top1 >= CONSIST_TOP1,
-              f"{name}: decode vs longer prefill top-1 {top1:.2f}")
-        check(max(worst.values()) <= 1.0,
-              f"{name}: decode vs longer prefill by sublayer: {worst}")
-        extra["consistency_by_sublayer"] = worst
-        extra["kv_quant"] = kv_quant_step(cfg, params, tokens, out[:, 0])
-    else:
-        check(rel <= CONSIST_REL_L2 and top1 >= CONSIST_TOP1,
-              f"{name}: decode vs longer prefill rel L2 {rel:.3g}, top-1 {top1:.2f}")
-        print(f"[lm] {name}: decode at step {LM_PROMPT} vs prefill over "
-              f"{LM_PROMPT + 1}: rel L2 {rel:.3g} (<= {CONSIST_REL_L2}), top-1 "
-              f"agree {top1:.2f} (>= {CONSIST_TOP1})")
-
-    # the same prefill again: the allocator's blocks and cuBLAS's choices
-    # for these shapes (the MoE's expert group sizes) are warm now
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    make_prefill_step(cfg, LM_CACHE_LEN)(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    t_again = time.perf_counter() - t0
+    check(rel <= CONSIST_REL_L2 and top1 >= CONSIST_TOP1,
+          f"{name}: decode vs longer prefill rel L2 {rel:.3g}, top-1 {top1:.2f}")
+    print(f"[lm] {name}: decode at step {LM_PROMPT} vs prefill over "
+          f"{LM_PROMPT + 1}: rel L2 {rel:.3g} (<= {CONSIST_REL_L2}), top-1 "
+          f"agree {top1:.2f} (>= {CONSIST_TOP1})")
+    extra = {"kv_quant": kv_quant_step(cfg, params, tokens, out[:, 0])} if kv_quant else {}
     prof = profile_lm(cfg, params, tokens)
     del params, logits, steps
     torch.cuda.empty_cache()
@@ -1069,16 +983,9 @@ def phase_lm(name: str, seed: int, n_layers=None) -> dict:
               f"kernels and copies; top:")
         for t_us, cnt, key in prof[f"{phase}_top"]:
             print(f"[lm]   {t_us / 1e3 / n:.3f} ms in {cnt / n:g} x {key[:70]}")
-    again = (f", card busy {prof['prefill_us'] / 1e3 / (t_again * 1e3) * 100:.2f}%"
-             if prof["prefill_us"] else "")
-    print(f"[lm] {name}: the same prefill again: {t_again * 1e3:.3f} ms{again}; "
-          f"top host operators by own CPU time (under the profiler):")
-    for t_us, cnt, key in prof["prefill_host_top"]:
-        print(f"[lm]   {t_us / 1e3:.3f} ms in {cnt} x {key[:70]}")
     cpu = card_vs_cpu(name, cfg, seed + 1)
     return {
         "launches": launched, "prefill_ms": t_prefill * 1e3,
-        "prefill_again_ms": t_again * 1e3,
         "decode_ms_per_step": ms_token, "busy_share": busy,
         "consistency_rel_l2": rel, "card_vs_cpu": cpu,
         "moe_host_reads_per_step": moe_reads_per_step, **extra,
@@ -1111,8 +1018,8 @@ def main() -> int:
     launches = phase_serve()
     phase_wall()
     flash_row, wkv_row, scan_row = phase_lm_kernels()
-    lm_runs = {name: phase_lm(name, seed=100 + i, n_layers=n)
-               for i, (name, n) in enumerate(LM_MODELS)}
+    lm_runs = {name: phase_lm(name, seed=100 + i, n_layers=n, kv_quant=q)
+               for i, (name, n, q) in enumerate(LM_MODELS)}
     pmm = kernel_entry(
         "preemptible_matmul_window", "src/repro_torch/csrc/preemptible_matmul.cu",
         "src/repro/kernels/preemptible_matmul/kernel.py:36", launches,

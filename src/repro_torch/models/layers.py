@@ -158,6 +158,19 @@ def quantize_kv(k):
     return q, scale.to(torch.bfloat16)
 
 
+def _bf16_bmm_f32(a, b):
+    """``a @ b`` over a leading batch axis with both operands rounded to
+    bf16 and an fp32 result. On the card the codes are widened to bf16
+    (2 bytes each, half the fp32 buffer) and cuBLAS returns fp32; PyTorch
+    has no bf16-operand, fp32-result product on the CPU, so there the
+    bf16-rounded operands are widened to fp32, which gives the same
+    products up to summation order."""
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def attention_decode_q8(p, x, cfg, cache, pos):
     """One-token decode over an int8 KV cache.
 
@@ -168,12 +181,9 @@ def attention_decode_q8(p, x, cfg, cache, pos):
     which gives the same values). The scales commute with the hd and S
     contractions, so they multiply the (B, kv, g, S) scores and
     probabilities and the cache is never dequantized. As in the
-    reference, q and the probabilities enter the products rounded to
-    bf16 and the products accumulate and return in fp32. The reference
-    asks XLA for bf16 operands with an fp32 result; PyTorch has that
-    form on the card only, so here the int8 codes are widened to fp32 as
-    the operands of the two products (exact: they are integers up to
-    127), a transient buffer of the codes, not of dequantized values.
+    reference, q, the codes and the probabilities enter the two products
+    as bf16 (exact for the codes: integers up to 127) and the products
+    accumulate and return in fp32 (`_bf16_bmm_f32`).
     """
     B = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -188,16 +198,17 @@ def attention_decode_q8(p, x, cfg, cache, pos):
     cache["v_scale"][rows, :, pos] = vs
     S_max = cache["k"].shape[2]
     groups = h // kv
-    qr = q.reshape(B, kv, groups, hd).to(torch.bfloat16).float()
-    scores = torch.einsum("bkgh,bksh->bkgs", qr, cache["k"].float())
+    qr = q.reshape(B * kv, groups, hd)
+    k8 = cache["k"].reshape(B * kv, S_max, hd)
+    scores = _bf16_bmm_f32(qr, k8.transpose(1, 2)).reshape(B, kv, groups, S_max)
     scores = scores * cache["k_scale"].float()[:, :, None, :]
     scores = scores * hd**-0.5
     valid = torch.arange(S_max, device=x.device)[None, :] <= pos[:, None]
     scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
     probs = torch.softmax(scores, dim=-1)
     probs = probs * cache["v_scale"].float()[:, :, None, :]
-    out = torch.einsum("bkgs,bksh->bkgh", probs.to(torch.bfloat16).float(),
-                       cache["v"].float()).to(x.dtype)
+    out = _bf16_bmm_f32(probs.reshape(B * kv, groups, S_max),
+                        cache["v"].reshape(B * kv, S_max, hd)).to(x.dtype)
     out = out.reshape(B, 1, h * hd)
     return x + out @ p["wo"], cache
 

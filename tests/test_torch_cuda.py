@@ -18,13 +18,18 @@ chunked form, whose ``k / prod(w)`` rescale loses a few more digits
 (1e-4 of the max, as the reference's own kernel test). Selective scan:
 the kernel's step-by-step recurrence against the plain chunked scan,
 which multiplies the same decays in another order (1e-4 of the max, the
-reference's tolerance between its kernel and its oracle).
+reference's tolerance between its kernel and its oracle). int8-KV
+decode step: the card's bf16-operand, fp32-result products against the
+CPU's fp32 products of the same bf16-rounded operands, which differ only
+in summation order (1e-5 of the max in fp32; relative L2 3e-2 in bf16,
+where the output's own rounding may flip), with equal codes and scales.
 """
 import math
 
 import pytest
 import torch
 
+from repro_torch.configs import load_config, smoke_config
 from repro_torch.kernels.flash_attention.kernel import flash_attention_call
 from repro_torch.kernels.flash_attention.ref import attention_plain, tol_ratio
 from repro_torch.kernels.mamba_scan.kernel import mamba_scan_call
@@ -37,6 +42,7 @@ from repro_torch.kernels.preemptible_matmul.ref import (
 )
 from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_call
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_plain
+from repro_torch.models import layers as L
 
 BLOCK = (128, 128, 128)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -215,3 +221,42 @@ def test_mamba_scan_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="d_state 16"):
         mamba_scan_call(*small, chunk=8)
     assert mamba_scan_call.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_decode_q8_on_card_matches_cpu(card, dtype):
+    """Two int8-KV decode steps over a quantized prompt cache, on the card
+    and on the CPU from the same weights, cache and inputs. The prompt's
+    codes stay as they were; the new tokens' codes may differ by one
+    where K or V, projected in another summation order, lands on a
+    rounding boundary."""
+    cfg = smoke_config(load_config("jamba_v0_1_52b"))
+    gen = torch.Generator().manual_seed(5)
+    p = L.attn_init(gen, cfg, dtype, device="cpu")
+    B, S, S_max = 2, 40, 48
+    x = torch.randn((B, S, cfg.d_model), generator=gen).to(dtype)
+    _, kv = L.attention_prefill(p, x, cfg, torch.arange(S).expand(B, S), S_max)
+    cache = {}
+    for name in ("k", "v"):
+        cache[name], cache[f"{name}_scale"] = L.quantize_kv(kv[name])
+    p_card = {k: v.to(card) for k, v in p.items()}
+    c_card = {k: v.to(card) for k, v in cache.items()}
+    for i in range(2):
+        xt = torch.randn((B, 1, cfg.d_model), generator=gen).to(dtype)
+        pos = torch.full((B,), S + i)
+        want, cache = L.attention_decode_q8(p, xt, cfg, cache, pos)
+        got, c_card = L.attention_decode_q8(p_card, xt.to(card), cfg, c_card,
+                                            pos.to(card))
+        got = got.cpu()
+        assert got.dtype == dtype and got.shape == want.shape
+        if dtype == torch.float32:
+            assert _rel(got, want) <= 1e-5
+        else:
+            err = ((got.float() - want.float()).norm() / want.float().norm()).item()
+            assert err <= 3e-2
+    for name in ("k", "v"):
+        got = c_card[name].cpu()
+        assert got.dtype == torch.int8
+        assert torch.equal(got[:, :, :S], cache[name][:, :, :S])
+        assert int((got.int() - cache[name].int()).abs().max()) <= 1
