@@ -60,6 +60,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -127,8 +128,15 @@ STEADY_CITY_MAX_UTIL = 0.9205637872700669
 #: published H100 SXM peaks (NVIDIA data sheet, dense), at 700 W
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-#: kernel vs plain version on the same inputs: fp32 differs only in
-#: summation order; bf16 inputs are upcast identically by both sides
+#: the TF32 tensor-core peak: the window kernel's fp32 path runs three
+#: TF32 products per fp32 one (3xTF32) there
+PEAK_TF32_FLOPS = 495e12
+#: the bf16 flash kernel feeds P as two bf16 terms (P_hi + P_lo), so its
+#: P V product runs twice: 1.5x the products of one pass
+FLASH_SPLIT_PRODUCTS = 1.5
+#: kernel vs plain version on the same inputs: the kernel's fp32 path
+#: (3xTF32) is fp32-exact to 1e-5 and differs in summation order; bf16
+#: products are exact in fp32 on both sides
 MAX_REL_ERR = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 #: chained outputs of a full-width job, card vs CPU: 8 fp32 layers of
 #: K up to 3072 summed in different orders (per layer ~1e-6 relative)
@@ -203,10 +211,13 @@ def device_ms(fn, reps: int = 50) -> float:
 
 
 def window_bound(M, K, N, start, window, dtype):
-    """Least time (ms) the card needs for one window, and what bounds it:
-    the touched rows of A, columns of B and tiles of C (read once and
-    written once) over memory bandwidth, against the window's flops over
-    the input type's peak."""
+    """Least time (ms) the card needs for one window, what bounds it, and
+    (fp32 only, else None) the operations term at the fp32 FMA peak: the
+    touched rows of A, columns of B and tiles of C (read once and written
+    once) over memory bandwidth, against the window's operations over the
+    peak of the units that run them. fp32 inputs run as three TF32
+    products at the TF32 tensor-core peak (the window kernel's 3xTF32);
+    bf16 inputs as one product at the bf16 peak."""
     n_n = N // BLOCK[2]
     tiles = [divmod(f, n_n) for f in range(start, start + window)]
     rows = len({i for i, _ in tiles})
@@ -219,8 +230,13 @@ def window_bound(M, K, N, start, window, dtype):
     )
     flops = 2.0 * window * BLOCK[0] * BLOCK[2] * K
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    if dtype == torch.float32:
+        t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        fma_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+    else:
+        t_ops, fma_ms = flops / PEAK_FLOPS[dtype] * 1e3, None
+    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
+            fma_ms)
 
 
 def kernel_case(M, K, N, window, dtype, seed, start=None):
@@ -254,15 +270,23 @@ def kernel_case(M, K, N, window, dtype, seed, start=None):
         a_r, b_c, c_t = a[rows], b[:, cols], c[rows, cols]
         if dtype == torch.float32:
             library_ms = device_ms(lambda: torch.addmm(c_t, a_r, b_c))
-    bound_ms, bound_by = window_bound(M, K, N, start, window, dtype)
+    bound_ms, bound_by, fma_ms = window_bound(M, K, N, start, window, dtype)
     return {
         "M": M, "K": K, "N": N, "window": window, "start": start,
         "dtype": str(dtype).replace("torch.", ""),
         "max_abs_err": diff, "max_rel_err": rel,
         "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
         "library_ms": library_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms": bound_ms, "bound_by": bound_by, "fp32_fma_bound_ms": fma_ms,
     }
+
+
+def _demangle(symbol: str) -> str:
+    """A kernel's C++ name, where the toolchain's c++filt is at hand."""
+    if shutil.which("c++filt") is None:
+        return symbol
+    out = subprocess.run(["c++filt", symbol], capture_output=True, text=True)
+    return out.stdout.strip() or symbol
 
 
 def phase_build() -> None:
@@ -272,8 +296,10 @@ def phase_build() -> None:
     for name, path in libs.items():
         print(f"[build] {name} -> {os.path.relpath(path, ROOT)}")
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
+            if "Compiling entry function" in line:
+                print(f"[build]   {_demangle(line.split(chr(39))[1])[:110]}")
+            elif "registers" in line or "spill" in line:
+                print(f"[build]     {line.strip()}")
 
 
 def phase_kernel() -> tuple[list[dict], dict]:
@@ -295,8 +321,12 @@ def phase_kernel() -> tuple[list[dict], dict]:
         cases.append((1024, K, N, pick_window(total, 2), "pallas", None))
     rows = []
     print("[kernel] M K N window geometry launches/job dtype | ms launch_ms "
-          "plain_ms addmm_ms bound_ms bound_by | max_rel_err  (ms: card "
-          "time from CUDA-graph replay; launch_ms: back-to-back from Python)")
+          "plain_ms addmm_ms bound_ms bound_by fp32_fma_bound_ms | max_rel_err  "
+          "(ms: card time from CUDA-graph replay; launch_ms: back-to-back from "
+          "Python; bound: fp32 as 3xTF32 at the TF32 tensor-core peak, "
+          f"{PEAK_TF32_FLOPS / 1e12:g} TFLOP/s; fp32_fma_bound_ms: the same "
+          f"flops at the fp32 FMA peak, {PEAK_FLOPS[torch.float32] / 1e12:g} "
+          "TFLOP/s)")
     for seed, (M, K, N, window, backend, per_job) in enumerate(cases):
         dtypes = [torch.float32]
         if M == 128 and backend == "jnp" and K >= 1024:
@@ -306,11 +336,13 @@ def phase_kernel() -> tuple[list[dict], dict]:
             row.update(geometry=backend, launches_per_job=per_job)
             rows.append(row)
             lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.5f}"
+            fma = ("-" if row["fp32_fma_bound_ms"] is None
+                   else f"{row['fp32_fma_bound_ms']:.5f}")
             print(
                 f"[kernel] {M} {K} {N} {window} {backend} {per_job or '-'} "
                 f"{row['dtype']} | {row['ms']:.5f} {row['launch_ms']:.5f} "
                 f"{row['plain_ms']:.5f} "
-                f"{lib} {row['bound_ms']:.5f} {row['bound_by']} | "
+                f"{lib} {row['bound_ms']:.5f} {row['bound_by']} {fma} | "
                 f"{row['max_rel_err']:.3g}"
             )
     # preempt / resume identity on the card (paper §3.4)
@@ -545,12 +577,14 @@ def counts() -> dict:
     }
 
 
-def flash_bound(B, S, H, Hkv, hd, es):
+def flash_bound(B, S, H, Hkv, hd, es, products=1.0):
     """Least time (ms) for causal attention, and what bounds it: q, o and
     k, v read or written once over memory bandwidth, against 4 * hd flops
-    per (query, key <= query) pair at the bf16 tensor-core peak."""
+    per (query, key <= query) pair at the bf16 tensor-core peak. With
+    ``products`` = FLASH_SPLIT_PRODUCTS it is the bf16 kernel's own floor
+    (P V twice, for P_hi and P_lo), not the function's bound."""
     nbytes = 2 * B * S * (H + Hkv) * hd * es
-    flops = 4.0 * hd * B * H * S * (S + 1) / 2
+    flops = products * 4.0 * hd * B * H * S * (S + 1) / 2
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -653,12 +687,14 @@ def flash_case(B, S, H, Hkv, hd, dtype, seed):
         lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), reps=10
     )
     bound_ms, bound_by = flash_bound(B, S, H, Hkv, hd, q.element_size())
+    split_ms, _ = flash_bound(B, S, H, Hkv, hd, q.element_size(),
+                              FLASH_SPLIT_PRODUCTS)
     return {
         "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
         "dtype": str(dtype).replace("torch.", ""),
         "max_abs_err": diff, "tol_ratio": ratio, "ms": ms,
         "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms": bound_ms, "bound_by": bound_by, "split_floor_ms": split_ms,
     }
 
 
@@ -704,8 +740,10 @@ def phase_lm_kernels() -> tuple[dict, dict, dict]:
     nemo, rwkv = load_config("mistral_nemo_12b"), load_config("rwkv6_7b")
     H, Hkv, hd = nemo.n_heads, nemo.n_kv_heads, nemo.head_dim
     print("[lmkern] flash B S H/Hkv hd dtype | ms plain_ms sdpa_ms bound_ms "
-          "bound_by | max_abs_err err/limit  (card time, CUDA-graph replay; "
-          "limit per element rtol|want| + floor rms(want), bf16 (rtol, floor) "
+          "bound_by split_floor_ms | max_abs_err err/limit  (card time, "
+          "CUDA-graph replay; split_floor_ms: the bound with P V run twice, "
+          f"{FLASH_SPLIT_PRODUCTS:g}x the products, for P_hi + P_lo; limit per "
+          "element rtol|want| + floor rms(want), bf16 (rtol, floor) "
           f"{FLASH_TOL[torch.bfloat16]})")
     flash_rows = []
     for seed, (S, h, hkv, d) in enumerate(
@@ -715,7 +753,8 @@ def phase_lm_kernels() -> tuple[dict, dict, dict]:
         flash_rows.append(row)
         print(f"[lmkern] flash {LM_BATCH} {S} {h}/{hkv} {d} bf16 | "
               f"{row['ms']:.5f} {row['plain_ms']:.5f} {row['library_ms']:.5f} "
-              f"{row['bound_ms']:.5f} {row['bound_by']} | "
+              f"{row['bound_ms']:.5f} {row['bound_by']} "
+              f"{row['split_floor_ms']:.5f} | "
               f"{row['max_abs_err']:.3g} {row['tol_ratio']:.3g}")
     Hr, hdr = rwkv.n_rwkv_heads, rwkv.rwkv_head_size
     print("[lmkern] wkv6 B S H hd | ms plain_ms bound_ms bound_by | max_rel_err")
@@ -1000,11 +1039,36 @@ def card_line() -> str:
     return out[0]
 
 
-def kernel_entry(name, source, replaces, launches, row) -> dict:
+#: each kernel's card time at the same shape before this version, copied
+#: from PERF.md §6 (H100 80GB HBM3, 700 W) and printed as a text line
+#: beside this run's readings; never part of the ``kernels`` line
+PREVIOUS_MS = {
+    "preemptible_matmul_window": (0.08465, "the fp32-FMA kernel, PR 14"),
+    "flash_attention": (2.56539, "the fp32-FMA kernel, PR 13"),
+    "rwkv6_scan": (0.72448, "PR 13"),
+    "mamba_scan": (0.48392, "PR 14"),
+}
+
+
+def kernel_entry(name, source, replaces, mma, launches, row) -> dict:
+    """One entry of the ``kernels`` line; ``mma`` names the units that do
+    its products ("wgmma" or "mma.sync" on the tensor cores, "fma" on the
+    CUDA cores)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "mma": mma, "launches": launches,
             **{k: row[k] for k in keys}}
+
+
+def previous_line(entries) -> str:
+    """A text line (not JSON) with each kernel's time in this run beside
+    its earlier time as copied from PERF.md (``PREVIOUS_MS``)."""
+    parts = []
+    for e in entries:
+        prev_ms, prev_from = PREVIOUS_MS[e["name"]]
+        parts.append(f"{e['name']} {e['ms']:.5f} ms now, {prev_ms} ms before "
+                     f"({prev_from})")
+    return "[previous] copied from PERF.md §6, not measured here: " + "; ".join(parts)
 
 
 def main() -> int:
@@ -1022,30 +1086,33 @@ def main() -> int:
                for i, (name, n, q) in enumerate(LM_MODELS)}
     pmm = kernel_entry(
         "preemptible_matmul_window", "src/repro_torch/csrc/preemptible_matmul.cu",
-        "src/repro/kernels/preemptible_matmul/kernel.py:36", launches,
+        "src/repro/kernels/preemptible_matmul/kernel.py:36", "mma.sync", launches,
         dict(head, max_abs_err=max(
             r["max_abs_err"] for r in rows if r["dtype"] == "float32")),
     )
     pmm.update(launch_ms=head["launch_ms"],
+               fp32_fma_bound_ms=head["fp32_fma_bound_ms"],
                shape={k: head[k] for k in ("M", "K", "N", "window", "dtype")})
     flash = kernel_entry(
         "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention/kernel.py:32",
+        "src/repro/kernels/flash_attention/kernel.py:32", "wgmma",
         lm_runs["mistral_nemo_12b"]["launches"]["flash_attention"], flash_row,
     )
-    flash["shape"] = {k: flash_row[k] for k in ("B", "S", "H", "Hkv", "hd", "dtype")}
+    flash.update(split_floor_ms=flash_row["split_floor_ms"],
+                 shape={k: flash_row[k] for k in ("B", "S", "H", "Hkv", "hd", "dtype")})
     wkv = kernel_entry(
         "rwkv6_scan", "src/repro_torch/csrc/rwkv6_scan.cu",
-        "src/repro/kernels/rwkv6_scan/kernel.py:29",
+        "src/repro/kernels/rwkv6_scan/kernel.py:29", "fma",
         lm_runs["rwkv6_7b"]["launches"]["rwkv6_scan"], wkv_row,
     )
     wkv["shape"] = {k: wkv_row[k] for k in ("B", "S", "H", "hd", "dtype")}
     scan = kernel_entry(
         "mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
-        "src/repro/kernels/mamba_scan/kernel.py:27",
+        "src/repro/kernels/mamba_scan/kernel.py:27", "fma",
         lm_runs["jamba_v0_1_52b"]["launches"]["mamba_scan"], scan_row,
     )
     scan["shape"] = {k: scan_row[k] for k in ("B", "S", "di", "ns", "dtype")}
+    print(previous_line([pmm, flash, wkv, scan]))
     print(json.dumps({"kernels": [pmm, flash, wkv, scan]}))
     print(card_line())
     print(json.dumps({

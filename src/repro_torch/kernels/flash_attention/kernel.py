@@ -3,8 +3,10 @@
 `flash_attention_call` launches the CUDA kernel of
 ``repro_torch/csrc/flash_attention.cu`` for CUDA tensors and runs the
 plain version (`ref.attention_plain`) for CPU tensors. For a CUDA
-tensor it launches or raises; it never falls back. The kernel reads the
-model's (B, S, heads, hd) tensors through their strides, so nothing is
+tensor it launches or raises; it never falls back. bf16 tensors go to
+the tensor-core kernel (wgmma, K/V through TMA), fp32 tensors to the
+SIMT kernel: one kernel per type. The kernel reads the model's
+(B, S, heads, hd) tensors through their strides, so nothing is
 transposed on either side of the call.
 """
 from __future__ import annotations
@@ -23,6 +25,8 @@ HEAD_DIMS = (64, 128)
 _BLOCK_Q = 64
 _GRID_Y_MAX = 65535
 _INT32_MAX = 2**31 - 1
+#: TMA reads the bf16 operands from 16-byte aligned addresses
+_ALIGN = 16
 
 
 @functools.cache
@@ -69,8 +73,8 @@ def flash_attention_call(q, k, v, *, causal: bool = True) -> torch.Tensor:
 
     q: (B, S, H, hd); k, v: (B, S, Hkv, hd) with H a multiple of Hkv;
     all float32 or all bfloat16, on one device. Returns (B, S, H, hd) in
-    q's dtype. On CUDA the tensors must be contiguous and hd 64 or 128;
-    the kernel runs on the current stream and each launch adds one to
+    q's dtype. On CUDA the tensors must be contiguous (bf16 ones also
+    16-byte aligned) and hd 64 or 128; the kernel runs on the current stream and each launch adds one to
     ``flash_attention_call.launches``. CPU tensors take the plain version
     and count nothing.
     """
@@ -84,6 +88,10 @@ def flash_attention_call(q, k, v, *, causal: bool = True) -> torch.Tensor:
         raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, got {hd}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+    if q.dtype == torch.bfloat16 and any(
+        t.data_ptr() % _ALIGN for t in (q, k, v)
+    ):
+        raise ValueError(f"bf16 q, k and v must be {_ALIGN}-byte aligned")
     if B * H > _INT32_MAX or -(-S // _BLOCK_Q) > _GRID_Y_MAX:
         raise ValueError(f"grid too large for B*H={B * H}, S={S}")
     out = torch.empty_like(q)

@@ -14,7 +14,11 @@ entry is just ``next_tile``.
 `matmul_window_call` launches the CUDA kernel of
 ``repro_torch/csrc/preemptible_matmul.cu`` for CUDA tensors and runs
 the plain version (`ref.matmul_window_plain`) for CPU tensors. For a
-CUDA tensor it launches or raises; it never falls back.
+CUDA tensor it launches or raises; it never falls back. The kernel
+multiplies on the tensor cores with ``mma.sync``: fp32 operands as three
+TF32 products (3xTF32, fp32-exact to 1e-5 of the max), bf16 operands as
+one bf16 product; each output element is summed by one block in a fixed
+order, so the same operands give the same bits.
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ _SYMBOLS = {torch.float32: "pmm_window_f32", torch.bfloat16: "pmm_window_bf16"}
 _CUDA_TILE = 128
 _CUDA_DEPTH = 32
 _INT32_MAX = 2**31 - 1
+#: the kernel copies operands in 16-byte pieces
+_ALIGN = 16
 
 
 @functools.cache
@@ -99,8 +105,8 @@ def matmul_window_call(
     kernel aliases it in and out the same way).
 
     ``a``: (M, K) and ``b``: (K, N), both float32 or both bfloat16;
-    ``c_acc``: (M, N) float32; all contiguous, on one device, with dims
-    multiples of ``block``. ``start`` is a plain int. The window must lie
+    ``c_acc``: (M, N) float32; all contiguous (on CUDA also 16-byte
+    aligned), on one device, with dims multiples of ``block``. ``start`` is a plain int. The window must lie
     inside the tile grid. On CUDA the kernel takes 128x128 output tiles
     (``block`` = (128, bk, 128) with bk a multiple of 32) and runs on
     the current stream; each launch adds one to
@@ -120,6 +126,8 @@ def matmul_window_call(
         )
     if max(a.numel(), b.numel(), c_acc.numel()) > _INT32_MAX:
         raise ValueError("operand too large for 32-bit tile indexing")
+    if any(t.data_ptr() % _ALIGN for t in (a, b, c_acc)):
+        raise ValueError(f"a, b and c_acc must be {_ALIGN}-byte aligned")
     fn = _kernel(a.dtype)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -1,8 +1,9 @@
 """The port's boundaries: it imports neither JAX nor the JAX package,
 `repro_torch.convert` carries the reference's objects across field for
 field, the kernel build is content-addressed, and ``chip_smoke.py``
-refuses to report without a card."""
+refuses to report without a card and prices its kernels' bounds."""
 import dataclasses
+import importlib.util
 import json
 import os
 import shutil
@@ -140,3 +141,53 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
         for line in lines:
             with pytest.raises(json.JSONDecodeError):
                 json.loads(line)
+
+
+def _load_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_chip_smoke_kernels_line_holds_only_this_runs_numbers():
+    """Each ``kernels`` entry carries the contract's keys and the route of
+    its products, every number taken from this run's row; the earlier
+    times copied from PERF.md go on a text line of their own."""
+    smoke = _load_smoke()
+    row = {"max_abs_err": 1e-7, "ms": 0.05, "plain_ms": 0.04, "bound_ms": 0.008,
+           "bound_by": "operations", "library_ms": 0.043, "previous_ms": 9.0}
+    entries = [smoke.kernel_entry(name, f"src/{name}.cu", "kernel.py:1", "fma", 3, row)
+               for name in smoke.PREVIOUS_MS]
+    contract = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for e in entries:
+        assert set(e) == contract | {"mma"}
+        assert {k: e[k] for k in row if k in e} == {k: v for k, v in row.items()
+                                                     if k in contract}
+    line = smoke.previous_line(entries)
+    assert line.startswith("[previous]") and "not measured here" in line
+    for name, (prev_ms, _) in smoke.PREVIOUS_MS.items():
+        assert f"{name} 0.05000 ms now, {prev_ms} ms before" in line
+    with pytest.raises(json.JSONDecodeError):
+        json.loads(line)
+
+
+def test_chip_smoke_bounds_price_the_units_that_run_the_products():
+    """The window's fp32 bound is 3xTF32 at the TF32 tensor-core peak, the
+    FMA figure beside it; the fp32 peak the scans use is unchanged; flash
+    keeps the function's bound and prints the P split's 1.5x floor."""
+    smoke = _load_smoke()
+    assert smoke.PEAK_FLOPS[torch.float32] == 67e12
+    flops = 2.0 * 24 * 128 * 128 * 1664
+    bound, by, fma = smoke.window_bound(128, 1664, 3072, 0, 24, torch.float32)
+    assert by == "operations"
+    assert bound == pytest.approx(3 * flops / smoke.PEAK_TF32_FLOPS * 1e3)
+    assert fma == pytest.approx(flops / 67e12 * 1e3)
+    assert round(bound, 5) == 0.00793 and round(fma, 5) == 0.01953
+    assert smoke.window_bound(128, 1664, 3072, 0, 24, torch.bfloat16)[2] is None
+    bound, by = smoke.flash_bound(2, 2048, 32, 8, 128, 2)
+    floor, _ = smoke.flash_bound(2, 2048, 32, 8, 128, 2, smoke.FLASH_SPLIT_PRODUCTS)
+    assert by == "operations" and round(bound, 5) == 0.06952
+    assert floor == pytest.approx(1.5 * bound)

@@ -5,9 +5,9 @@ only PyTorch is installed::
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerances: fp32 differs from the plain version only in summation order
-(max rel err 1e-5); bf16 inputs are upcast identically on both sides
-(2e-2, as the reference's bf16 tests). Flash attention: the kernel and
+Tolerances: the window kernel's fp32 path (three TF32 products on the
+tensor cores) is fp32-exact to 1e-5 of the max; bf16 inputs are exact
+products on both sides (2e-2, as the reference's bf16 tests). Flash attention: the kernel and
 the plain version both keep fp32 statistics and differ in summation
 order and the online rescale; each output element is held to its own
 size, |got - want| <= rtol |want| + floor rms(want), with (rtol, floor)
@@ -64,7 +64,9 @@ def _rel(x, y):
 @pytest.mark.parametrize(
     "M,K,N,start,window",
     [(128, 128, 128, 0, 1), (128, 1664, 3072, 0, 24), (128, 3072, 768, 2, 3),
-     (1024, 512, 1024, 6, 2), (256, 384, 384, 2, 3)],
+     (1024, 512, 1024, 6, 2), (256, 384, 384, 2, 3),
+     (256, 1664, 768, 4, 4),  # tiles 4, 5 | 6, 7: across a tile row
+     (256, 1664, 3072, 20, 24)],  # wide blocks, across a tile row
 )
 def test_kernel_window_matches_plain(card, dtype, M, K, N, start, window):
     gen = torch.Generator(device=card).manual_seed(M + K + N)
@@ -79,6 +81,44 @@ def test_kernel_window_matches_plain(card, dtype, M, K, N, start, window):
     want = matmul_window_plain(a, b, c0.clone(), start, window, BLOCK)
     torch.cuda.synchronize()
     assert _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,window", [(96, 2), (1632, 24)])
+def test_kernel_window_takes_any_k_multiple_of_32(card, dtype, K, window):
+    """The bf16 path stages K in 64-deep slices: a K that is an odd
+    multiple of 32 ends on a half slice, which must read as zeros. Both
+    block shapes: 2 tiles take the narrow one, 24 the wide one."""
+    M, N, block = 128, 3072, (128, 32, 128)
+    gen = torch.Generator(device=card).manual_seed(K)
+    a = torch.randn((M, K), generator=gen, device=card).to(dtype)
+    b = (torch.randn((K, N), generator=gen, device=card) / math.sqrt(K)).to(dtype)
+    c0 = torch.randn((M, N), generator=gen, device=card)
+    _, n_n, k_steps, _ = grid_geometry(M, N, K, block)
+    got = matmul_window_call(0, a, b, c0.clone(), block=block, window=window,
+                             n_tiles_n=n_n, k_steps=k_steps)
+    want = matmul_window_plain(a, b, c0.clone(), 0, window, block)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_window_is_bit_identical_across_launches(card, dtype):
+    """Each output element is summed by one block in one fixed order (no
+    split-K, no atomics), so the same operands give the same bits."""
+    M, K, N = 128, 1664, 3072
+    gen = torch.Generator(device=card).manual_seed(7)
+    a = torch.randn((M, K), generator=gen, device=card).to(dtype)
+    b = (torch.randn((K, N), generator=gen, device=card) / math.sqrt(K)).to(dtype)
+    c0 = torch.randn((M, N), generator=gen, device=card)
+    _, n_n, k_steps, total = grid_geometry(M, N, K, BLOCK)
+    kw = dict(block=BLOCK, window=total, n_tiles_n=n_n, k_steps=k_steps)
+    first = matmul_window_call(0, a, b, c0.clone(), **kw)
+    second = matmul_window_call(0, a, b, c0.clone(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -116,7 +156,9 @@ def _qkv(card, B, S, H, Hkv, hd, dtype, seed):
 @pytest.mark.parametrize(
     "B,S,H,Hkv,hd,causal",
     [(2, 256, 32, 8, 128, True), (1, 1000, 4, 4, 64, True),
-     (2, 77, 8, 1, 128, True), (1, 200, 4, 2, 64, False)],
+     (2, 77, 8, 1, 128, True), (1, 200, 4, 2, 64, False),
+     (2, 1000, 8, 2, 64, True), (2, 1000, 8, 2, 128, False),
+     (2, 77, 4, 2, 64, False)],
 )
 def test_flash_kernel_matches_plain(card, dtype, B, S, H, Hkv, hd, causal):
     q, k, v = _qkv(card, B, S, H, Hkv, hd, dtype, S + H)
@@ -127,6 +169,47 @@ def test_flash_kernel_matches_plain(card, dtype, B, S, H, Hkv, hd, causal):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
     assert tol_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,hd", [(1000, 64), (1000, 128), (77, 64), (77, 128)])
+def test_flash_kernel_ragged_tile_never_reads_the_next_batch(card, S, hd, causal):
+    """With B = 2 the memory past batch 0's last position is batch 1's.
+    Fill batch 1 with NaN: batch 0's ragged last K/V tile must read zeros
+    there (the kernel's tensor maps run over (hd, heads, S, B)), or a
+    masked probability of 0 times NaN poisons its rows."""
+    q, k, v = _qkv(card, 2, S, 8, 2, hd, torch.bfloat16, S + hd)
+    for t in (q, k, v):
+        t[1] = float("nan")
+    got = flash_attention_call(q, k, v, causal=causal)
+    want = attention_plain(q[:1], k[:1], v[:1], causal=causal)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got[0]).all())
+    assert tol_ratio(got[:1], want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_misaligned_operands(card):
+    """Contiguous views that start 4 bytes into their storage: the window
+    kernel copies 16-byte pieces and TMA reads 16-byte aligned rows."""
+    def shifted(shape, dtype):
+        n, skip = math.prod(shape), 4 // torch.tensor([], dtype=dtype).element_size()
+        return torch.zeros(n + skip, dtype=dtype, device=card)[skip:].view(shape)
+
+    a = shifted((128, 128), torch.float32)
+    b = torch.zeros((128, 128), device=card)
+    before = matmul_window_call.launches
+    with pytest.raises(ValueError, match="aligned"):
+        matmul_window_call(0, a, b, torch.zeros_like(b), block=BLOCK,
+                           window=1, n_tiles_n=1, k_steps=1)
+    assert matmul_window_call.launches == before
+    q = shifted((1, 64, 2, 64), torch.bfloat16)
+    k = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=card)
+    before = flash_attention_call.launches
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_call(q, k, k)
+    assert flash_attention_call.launches == before
 
 
 @pytest.mark.cuda

@@ -64,10 +64,26 @@ def test_plain_matches_pallas_kernel_and_oracle(dtype, S, H, Hkv):
     assert tol_ratio(got, _as_torch(attention_ref(jq, jk, jv), dtype)) <= 1.0
 
 
-def _online_softmax(q, k, v, block=64):
+def _pv(p, v, p_split):
+    """The P V product of one K/V block, P fed as the kernel feeds it:
+    fp32 (the SIMT kernel), "hi_lo" (the tensor-core kernel: P_hi =
+    bf16(P) and P_lo = bf16(P - P_hi), both products summed in fp32) or
+    "bf16" (P rounded to bf16 once, as a textbook tensor-core kernel)."""
+    if p_split is None:
+        return torch.einsum("bqk,bkd->bqd", p, v)
+    hi = p.bfloat16().float()
+    out = torch.einsum("bqk,bkd->bqd", hi, v)
+    if p_split == "hi_lo":
+        out = out + torch.einsum("bqk,bkd->bqd", (p - hi).bfloat16().float(), v)
+    return out
+
+
+def _online_softmax(q, k, v, block=64, p_split=None):
     """Causal GQA attention in the CUDA kernel's order: 64-row query
     blocks sweep 64-row K/V blocks to the diagonal with a running max,
-    sum and accumulator in fp32, and the output rounds once at the end."""
+    sum and accumulator in fp32, and the output rounds once at the end.
+    ``p_split`` says how P enters the P V product (`_pv`); the row sums
+    are always taken from the fp32 P."""
     B, S, H, hd = q.shape
     group = H // k.shape[2]
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -88,8 +104,7 @@ def _online_softmax(q, k, v, block=64):
                 p = torch.exp(s - m_new[..., None])
                 alpha = torch.exp(m - m_new)
                 l = alpha * l + p.sum(-1)
-                acc = alpha[..., None] * acc + torch.einsum(
-                    "bqk,bkd->bqd", p, vh[:, k0:k0 + block])
+                acc = alpha[..., None] * acc + _pv(p, vh[:, k0:k0 + block], p_split)
                 m = m_new
             out[:, q0:q0 + block, h] = acc / l[..., None]
     return out.to(q.dtype)
@@ -108,6 +123,18 @@ def test_kernel_tolerance_passes_online_order_and_catches_late_rows(dtype):
     wrong = got.float()
     wrong[:, 300:] *= 1.02
     assert tol_ratio(wrong.to(want.dtype), want) > 1.0
+
+
+def test_tensor_core_p_split_meets_the_bound_and_plain_bf16_p_does_not():
+    """The bf16 CUDA kernel multiplies P V on the tensor cores. With P
+    fed as P_hi + P_lo (two bf16 terms, one fp32 sum) it stays within
+    the kernel's bound (one bf16 ulp of each output), at the head width
+    and a prompt length of the LM path; with P rounded to bf16 once it
+    does not, so the bound is what forces the split."""
+    (_, tq), (_, tk), (_, tv) = _qkv(1, 1024, 4, 2, 128, "bfloat16", seed=21)
+    want = attention_plain(tq, tk, tv)
+    assert tol_ratio(_online_softmax(tq, tk, tv, p_split="hi_lo"), want) <= 1.0
+    assert tol_ratio(_online_softmax(tq, tk, tv, p_split="bf16"), want) > 1.0
 
 
 def test_output_keeps_q_dtype_and_head_mapping():

@@ -177,6 +177,41 @@ def test_cpu_path_counts_no_launch():
     assert matmul_window_call.launches == before
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` does: on the int32 view, add half
+    of the 13 dropped bits to the magnitude and clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_tf32_emulation_rounds_to_nearest_ties_away():
+    x = torch.tensor([1 + 2**-11, 1 + 2**-11 + 2**-20, -(1 + 2**-11), 1 + 2**-12, 3.0])
+    assert _tf32(x).tolist() == [1 + 2**-10, 1 + 2**-10, -(1 + 2**-10), 1.0, 3.0]
+
+
+def test_three_tf32_products_meet_the_card_bound_and_one_does_not():
+    """The CUDA window kernel multiplies fp32 operands on the tensor cores
+    as three TF32 products (a_lo b_hi + a_hi b_lo + a_hi b_hi, with hi =
+    tf32(x) and lo = tf32(x - hi)). At the largest main-path window
+    (M 128, K 1664, N 3072, all 24 tiles), with the card check's inputs,
+    that stays within the check's 1e-5 of the max against the plain fp32
+    version; one TF32 product misses it."""
+    M, K, N = 128, 1664, 3072
+    rng = np.random.default_rng(15)
+    a = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32))
+    b = torch.from_numpy(rng.standard_normal((K, N), dtype=np.float32)) / K**0.5
+    c0 = torch.from_numpy(rng.standard_normal((M, N), dtype=np.float32))
+    _, n_n, _, total = grid_geometry(M, N, K, BLOCK)
+    want = matmul_window_plain(a, b, c0.clone(), 0, total, BLOCK)
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    three = c0 + ((a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi)
+    one = c0 + a_hi @ b_hi
+    assert _rel_err(three, want) <= 1e-5
+    assert _rel_err(one, want) > 1e-5
+
+
 def test_pad_operands_round_trip():
     a = torch.randn(100, 70, generator=torch.Generator().manual_seed(0))
     b = torch.randn(70, 200, generator=torch.Generator().manual_seed(1))
