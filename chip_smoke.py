@@ -34,7 +34,9 @@ Phases, each printing what it finds; any failure exits non-zero:
              Jamba's scan at S = 2048, a ragged S = 1000 and from a
              non-zero h0), each with its card time, the plain version's,
              ``scaled_dot_product_attention`` for flash (a yardstick the
-             port never calls), bound and error.
+             port never calls), bound and error; for WKV-6 also the
+             bytes it must move over its card time, and its share of
+             the bound.
 6. lm      — Mistral-NeMo-12B and RWKV-6-7B at full width and depth, then
              Jamba-v0.1-52B at full width and 16 of its 32 layers (all 32
              hold 102.9 GB in bf16, more than the card's 80 GB), one
@@ -590,16 +592,21 @@ def flash_bound(B, S, H, Hkv, hd, es, products=1.0):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def wkv_bytes(B, S, H, hd):
+    """Bytes WKV-6 must move: r, k, v, w read and y written once, plus u
+    and S_final."""
+    return 4 * (5 * B * S * H * hd + H * hd + B * H * hd * hd)
+
+
 def wkv_bound(B, S, H, hd):
-    """Least time (ms) for WKV-6, and what bounds it: r, k, v, w read and
-    y written once (plus u and S_final) over memory bandwidth, against
-    the fp32 flops the function needs at the fp32 FMA peak. Per step and
-    head: the state update w * S + k v^T is 3 flops per state element and
-    r^T S is 2; the bonus r^T diag(u) k v^T is (sum_i r_i u_i k_i) v, 3
-    flops per row to reduce and 2 per column to add."""
-    nbytes = 4 * (5 * B * S * H * hd + H * hd + B * H * hd * hd)
+    """Least time (ms) for WKV-6, and what bounds it: `wkv_bytes` over
+    memory bandwidth, against the fp32 flops the function needs at the
+    fp32 FMA peak. Per step and head: the state update w * S + k v^T is 3
+    flops per state element and r^T S is 2; the bonus r^T diag(u) k v^T
+    is (sum_i r_i u_i k_i) v, 3 flops per row to reduce and 2 per column
+    to add."""
     flops = float(B * S * H) * (5 * hd * hd + 5 * hd)
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_bytes = wkv_bytes(B, S, H, hd) / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -731,6 +738,8 @@ def wkv_case(B, S, H, hd, seed):
         "max_abs_err": diff, "max_rel_err": rel, "ms": ms,
         "plain_ms": plain_ms, "library_ms": None,
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "bytes_per_s": wkv_bytes(B, S, H, hd) / (ms * 1e-3),
+        "bound_share": bound_ms / ms,
     }
 
 
@@ -757,13 +766,16 @@ def phase_lm_kernels() -> tuple[dict, dict, dict]:
               f"{row['split_floor_ms']:.5f} | "
               f"{row['max_abs_err']:.3g} {row['tol_ratio']:.3g}")
     Hr, hdr = rwkv.n_rwkv_heads, rwkv.rwkv_head_size
-    print("[lmkern] wkv6 B S H hd | ms plain_ms bound_ms bound_by | max_rel_err")
+    print("[lmkern] wkv6 B S H hd | ms plain_ms bound_ms bound_by TB/s "
+          "bound/ms | max_rel_err  (TB/s: the bytes the function must move "
+          "over the card time)")
     wkv_rows = []
     for seed, (B, S) in enumerate(((LM_BATCH, LM_PROMPT), (1, 1000))):
         row = wkv_case(B, S, Hr, hdr, 10 + seed)
         wkv_rows.append(row)
         print(f"[lmkern] wkv6 {B} {S} {Hr} {hdr} | {row['ms']:.5f} "
-              f"{row['plain_ms']:.5f} {row['bound_ms']:.5f} {row['bound_by']} | "
+              f"{row['plain_ms']:.5f} {row['bound_ms']:.5f} {row['bound_by']} "
+              f"{row['bytes_per_s'] / 1e12:.3f} {row['bound_share']:.3f} | "
               f"{row['max_rel_err']:.3g}")
     jamba = load_config("jamba_v0_1_52b")
     di, ns, chunk = jamba.d_inner, jamba.mamba_d_state, jamba.mamba_chunk
@@ -862,16 +874,27 @@ def card_vs_cpu(name, cfg, seed) -> dict:
     return {"rel_l2": rel, "top1": top1}
 
 
-def _on_card(prof) -> tuple[float, int, list]:
+#: the port's own kernels by the name the profiler gives them
+PORT_KERNELS = ("window_kernel", "fa_kernel", "wkv6_kernel", "scan_kernel")
+
+
+def _on_card(prof) -> tuple[float, int, list, dict]:
     """Card time (us) in a profiler window, the number of kernels and
-    copies the card ran, and the top ones by card time."""
+    copies the card ran, the top ones by card time, and the card time and
+    count of each of the port's kernels that ran."""
     rows = [
         (e.self_device_time_total, e.count, e.key)
         for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
     ]
+    own = {}
+    for t, n, key in rows:
+        for name in PORT_KERNELS:
+            if name in key:
+                us, cnt = own.get(name, (0.0, 0))
+                own[name] = (us + t, cnt + n)
     return (sum(t for t, _, _ in rows), sum(n for _, n, _ in rows),
-            sorted(rows, reverse=True)[:5])
+            sorted(rows, reverse=True)[:5], own)
 
 
 def profile_lm(cfg, params, tokens) -> dict:
@@ -884,7 +907,7 @@ def profile_lm(cfg, params, tokens) -> dict:
     with profile(activities=acts) as prof:
         logits, cache = make_prefill_step(cfg, LM_CACHE_LEN)(params, {"tokens": tokens})
         torch.cuda.synchronize()
-    prefill_us, prefill_n, prefill_top = _on_card(prof)
+    prefill_us, prefill_n, prefill_top, prefill_own = _on_card(prof)
     serve_step = make_serve_step(cfg)
     nxt = logits.argmax(-1)
     with profile(activities=acts) as prof:
@@ -893,10 +916,11 @@ def profile_lm(cfg, params, tokens) -> dict:
             step_logits, cache = serve_step(params, cache, {"tokens": nxt}, pos)
             nxt = step_logits.argmax(-1)
         torch.cuda.synchronize()
-    decode_us, decode_n, decode_top = _on_card(prof)
+    decode_us, decode_n, decode_top, decode_own = _on_card(prof)
     return {"prefill_us": prefill_us, "prefill_n": prefill_n,
-            "prefill_top": prefill_top, "decode_us": decode_us,
-            "decode_n": decode_n, "decode_top": decode_top}
+            "prefill_top": prefill_top, "prefill_own": prefill_own,
+            "decode_us": decode_us, "decode_n": decode_n,
+            "decode_top": decode_top, "decode_own": decode_own}
 
 
 def kv_quant_step(cfg, params, tokens, nxt) -> dict:
@@ -1022,6 +1046,10 @@ def phase_lm(name: str, seed: int, n_layers=None, kv_quant=False) -> dict:
               f"kernels and copies; top:")
         for t_us, cnt, key in prof[f"{phase}_top"]:
             print(f"[lm]   {t_us / 1e3 / n:.3f} ms in {cnt / n:g} x {key[:70]}")
+        for kernel, (t_us, cnt) in prof[f"{phase}_own"].items():
+            print(f"[lm]   port kernel {kernel}: {t_us / 1e3 / n:.3f} ms in "
+                  f"{cnt / n:g} ({t_us / prof[f'{phase}_us'] * 100:.2f}% of the "
+                  "card time)")
     cpu = card_vs_cpu(name, cfg, seed + 1)
     return {
         "launches": launched, "prefill_ms": t_prefill * 1e3,
@@ -1045,7 +1073,7 @@ def card_line() -> str:
 PREVIOUS_MS = {
     "preemptible_matmul_window": (0.08465, "the fp32-FMA kernel, PR 14"),
     "flash_attention": (2.56539, "the fp32-FMA kernel, PR 13"),
-    "rwkv6_scan": (0.72448, "PR 13"),
+    "rwkv6_scan": (0.71597, "the step kernel before its TMA redesign"),
     "mamba_scan": (0.48392, "PR 14"),
 }
 

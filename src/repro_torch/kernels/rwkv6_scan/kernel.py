@@ -3,8 +3,9 @@
 `rwkv6_scan_call` launches the CUDA kernel of
 ``repro_torch/csrc/rwkv6_scan.cu`` for CUDA tensors and runs the plain
 version (`ref.rwkv6_scan_plain`) for CPU tensors. For a CUDA tensor it
-launches or raises; it never falls back. The kernel reads and writes
-the model's (B, S, H, hd) tensors through their strides.
+launches or raises; it never falls back. The kernel reads the model's
+(B, S, H, hd) tensors through TMA tensor maps, STAGE_STEPS steps at a
+time, and writes y through their strides.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ HEAD_DIM = 64
 #: longest chunk the plain (chunked) version is exact for under the
 #: model's decay clamp; the JAX kernel has the same limit
 MAX_CHUNK = 64
+#: time steps the CUDA kernel stages per TMA box (``kT`` in the source)
+STAGE_STEPS = 32
 _INT32_MAX = 2**31 - 1
 
 
@@ -64,9 +67,9 @@ def rwkv6_scan_call(r, k, v, w, u, *, chunk: int = MAX_CHUNK):
 
     r, k, v, w: (B, S, H, hd); u: (H, hd). Returns (y (B, S, H, hd),
     S_final (B, H, hd, hd)), float32. On CUDA every operand must be
-    float32 and contiguous and hd 64; the kernel is a step-by-step
-    recurrence whose result does not depend on ``chunk``, runs on the
-    current stream, and each launch adds one to
+    float32 and contiguous, r, k, v, w 16-byte aligned, and hd 64; the
+    kernel is a step-by-step recurrence whose result does not depend on
+    ``chunk``, runs on the current stream, and each launch adds one to
     ``rwkv6_scan_call.launches``. CPU tensors take the plain chunked
     version and count nothing.
     """
@@ -82,6 +85,8 @@ def rwkv6_scan_call(r, k, v, w, u, *, chunk: int = MAX_CHUNK):
         raise ValueError("the CUDA kernel takes float32 r, k, v, w, u")
     if not all(t.is_contiguous() for t in (r, k, v, w, u)):
         raise ValueError("r, k, v, w, u must be contiguous")
+    if any(t.data_ptr() % 16 for t in (r, k, v, w)):
+        raise ValueError("r, k, v, w must be 16-byte aligned (TMA)")
     if B * H > _INT32_MAX:
         raise ValueError(f"grid too large for B*H={B * H}")
     y = torch.empty_like(r)

@@ -15,7 +15,9 @@ from ``flash_attention.ref.KERNEL_TOL``: (1e-5, 1e-4) for fp32 and
 (2^-7, 1e-3) for bf16, one bf16 ulp of each value.
 WKV-6: the kernel's exact step-by-step recurrence against the plain
 chunked form, whose ``k / prod(w)`` rescale loses a few more digits
-(1e-4 of the max, as the reference's own kernel test). Selective scan:
+(1e-4 of the max, as the reference's own kernel test); where the
+kernel must ignore what lies outside its (batch row, head), or run
+twice on the same inputs, the result is held bit for bit. Selective scan:
 the kernel's step-by-step recurrence against the plain chunked scan,
 which multiplies the same decays in another order (1e-4 of the max, the
 reference's tolerance between its kernel and its oracle). int8-KV
@@ -40,7 +42,7 @@ from repro_torch.kernels.preemptible_matmul.ref import (
     matmul_ref,
     matmul_window_plain,
 )
-from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_call
+from repro_torch.kernels.rwkv6_scan.kernel import STAGE_STEPS, rwkv6_scan_call
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_plain
 from repro_torch.models import layers as L
 
@@ -221,21 +223,33 @@ def test_flash_kernel_refuses_other_head_widths(card):
     assert flash_attention_call.launches == before
 
 
-def _wkv_inputs(card, B, S, H, hd, seed):
+def _wkv_inputs(card, B, S, H, hd, seed, logit=None):
+    """As the model feeds the scan: decay logits normal, clamped to the
+    model's [-8, -1], or all equal to ``logit``."""
     gen = torch.Generator(device=card).manual_seed(seed)
     r = torch.randn((B, S, H, hd), generator=gen, device=card)
     k = torch.randn((B, S, H, hd), generator=gen, device=card) * 0.3
     v = torch.randn((B, S, H, hd), generator=gen, device=card)
-    logit = torch.randn((B, S, H, hd), generator=gen, device=card).clamp(-8, -1)
-    w = torch.exp(-torch.exp(logit))
+    logits = torch.randn((B, S, H, hd), generator=gen, device=card).clamp(-8, -1)
+    if logit is not None:
+        logits = torch.full_like(logits, logit)
+    w = torch.exp(-torch.exp(logits))
     u = torch.randn((H, hd), generator=gen, device=card) * 0.1
     return r, k, v, w, u
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H", [(2, 256, 8), (1, 1000, 4), (1, 37, 2)])
-def test_wkv6_kernel_matches_plain(card, B, S, H):
-    r, k, v, w, u = _wkv_inputs(card, B, S, H, 64, S)
+@pytest.mark.parametrize(
+    "B,S,H,logit",
+    [(2, 256, 8, None), (1, 1000, 4, None), (1, 37, 2, None),
+     # S at and around one TMA stage of the kernel, and past 2048
+     (1, 1, 2, None), (1, STAGE_STEPS - 1, 2, None), (1, STAGE_STEPS, 2, None),
+     (1, STAGE_STEPS + 1, 2, None), (1, 2049, 2, None),
+     (2, 256, 64, None),  # the main path's B·H
+     (1, 1000, 4, -8.0), (1, 1000, 4, -1.0)],  # decays at both clamp ends
+)
+def test_wkv6_kernel_matches_plain(card, B, S, H, logit):
+    r, k, v, w, u = _wkv_inputs(card, B, S, H, 64, S, logit)
     before = rwkv6_scan_call.launches
     y, s_final = rwkv6_scan_call(r, k, v, w, u)
     assert rwkv6_scan_call.launches == before + 1
@@ -243,6 +257,48 @@ def test_wkv6_kernel_matches_plain(card, B, S, H):
     torch.cuda.synchronize()
     assert _rel(y, y_want) <= 1e-4
     assert _rel(s_final, s_want) <= 1e-4
+
+
+def _nan_tailed(x):
+    """``x`` copied to the front of a larger buffer whose tail is NaN:
+    contiguous and aligned, with NaN past its last element."""
+    buf = torch.full((x.numel() + 64 * 64,), float("nan"), device=x.device)
+    buf[: x.numel()] = x.flatten()
+    return buf[: x.numel()].view(x.shape)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_reads_only_its_own_batch_row_and_head(card):
+    """NaN in batch row 1, in head 1 of batch row 0, and past the end of
+    the tensors; S ragged against the stage. Heads 0 and 2 of batch row 0
+    must come out finite and equal to a clean run's, bit for bit."""
+    B, S, H = 2, STAGE_STEPS + 13, 3
+    clean = _wkv_inputs(card, B, S, H, 64, 7)
+    y_clean, s_clean = rwkv6_scan_call(*clean)
+    dirty = []
+    for x in clean[:4]:
+        x = x.clone()
+        x[1] = float("nan")
+        x[0, :, 1] = float("nan")
+        dirty.append(_nan_tailed(x))
+    u = clean[4].clone()
+    u[1] = float("nan")
+    y, s_final = rwkv6_scan_call(*dirty, u)
+    torch.cuda.synchronize()
+    for h in (0, 2):
+        assert torch.isfinite(y[0, :, h]).all() and torch.isfinite(s_final[0, h]).all()
+        assert torch.equal(y[0, :, h], y_clean[0, :, h])
+        assert torch.equal(s_final[0, h], s_clean[0, h])
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_is_deterministic(card):
+    """Two launches on the same inputs: bit-identical y and state."""
+    ops = _wkv_inputs(card, 2, 256, 64, 64, 3)
+    y1, s1 = rwkv6_scan_call(*ops)
+    y2, s2 = rwkv6_scan_call(*ops)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
 @pytest.mark.cuda
@@ -254,6 +310,11 @@ def test_wkv6_kernel_refuses_what_it_does_not_take(card):
     r, k, v, w, u = _wkv_inputs(card, 1, 16, 2, 64, 0)
     with pytest.raises(ValueError, match="float32"):
         rwkv6_scan_call(r.bfloat16(), k, v, w, u)
+    shifted = torch.empty(r.numel() + 1, device=card)[1:].view(r.shape)
+    shifted.copy_(r)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        rwkv6_scan_call(shifted, k, v, w, u)
     assert rwkv6_scan_call.launches == before
 
 

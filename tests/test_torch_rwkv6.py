@@ -13,6 +13,8 @@ chunked forms rescale k by 1/prod(w) (here ``k / max(W, 1e-30)``, on the
 TPU ``k * exp(-cumw)``), which loses a few digits against the stepwise
 recurrence; they are not bit for bit.
 """
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +24,11 @@ from repro.kernels.rwkv6_scan import rwkv6_scan as ref_scan
 from repro.kernels.rwkv6_scan.ops import _shrink_to_divisor
 from repro.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
-from repro_torch.kernels.rwkv6_scan.kernel import MAX_CHUNK, rwkv6_scan_call
+from repro_torch.kernels.rwkv6_scan.kernel import (
+    MAX_CHUNK,
+    STAGE_STEPS,
+    rwkv6_scan_call,
+)
 from repro_torch.kernels.rwkv6_scan.ref import chunk_size
 
 torch.set_num_threads(1)
@@ -91,3 +97,74 @@ def test_cpu_wrapper_counts_nothing_and_checks_inputs():
         rwkv6_scan_call(*t[:4], t[4][:1])
     with pytest.raises(ValueError, match="disagree"):
         rwkv6_scan_call(t[0], t[1][:, :8], t[2], t[3], t[4])
+
+
+def _row_groups(hd):
+    """The CUDA kernel's row groups for head width ``hd``: group g holds
+    rows 4g..4g+3 and hd/2+4g..hd/2+4g+3, in that order (at hd 64 the 8
+    groups of csrc/rwkv6_scan.cu, one per lane row of a compute warp)."""
+    half = hd // 2
+    return [[4 * g + q for q in range(4)] + [half + 4 * g + q for q in range(4)]
+            for g in range(half // 4)]
+
+
+def _fma(a, b, c):
+    """fp32 fused multiply-add: the product and sum in float64 (exact
+    product of two floats), rounded once to float32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _kernel_order_scan(r, k, v, w, u):
+    """WKV-6 in the CUDA kernel's summation order, on float32 tensors.
+
+    Per step: the bonus ``b_t = Σ_i r_i u_i k_i`` as one FMA chain
+    ``(r_i u_i) k_i`` over each row group's rows, the groups' sums added
+    pairwise (the lanes' butterfly); y's partial per group as an FMA chain
+    ``r_i S_{t-1}[i]`` over its rows, the groups' partials added in group
+    order, then ``fma(b_t, v_t, ·)``; the state ``fma(w_i, S_{t-1}[i],
+    k_i v_t)``."""
+    B, S, H, hd = r.shape
+    idx = torch.tensor(_row_groups(hd))  # (groups, rows)
+    st = torch.zeros((B, H, hd, hd), dtype=torch.float32)
+    ys = torch.empty((B, S, H, hd), dtype=torch.float32)
+    for t in range(S):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]  # (B, H, hd)
+        ru, kg, rg = (rt * u)[..., idx], kt[..., idx], rt[..., idx]  # (B, H, G, R)
+        sg = st[:, :, idx]  # (B, H, G, R, hd)
+        bon = ru[..., 0] * kg[..., 0]
+        part = rg[..., 0, None] * sg[..., 0, :]
+        for j in range(1, idx.shape[1]):
+            bon = _fma(ru[..., j], kg[..., j], bon)
+            part = _fma(rg[..., j, None], sg[..., j, :], part)
+        while bon.shape[-1] > 1:
+            bon = bon[..., 0::2] + bon[..., 1::2]
+        y = part[:, :, 0]
+        for g in range(1, idx.shape[0]):
+            y = y + part[:, :, g]
+        ys[:, t] = _fma(bon, vt, y)
+        st = _fma(wt[..., :, None], st, kt[..., :, None] * vt[..., None, :])
+    return ys, st
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("logit", [-8.0, -1.0])
+def test_kernel_summation_order_matches_stepwise_oracle(hd, logit):
+    """The CUDA kernel's order of summation (bonus out of the state,
+    partial y per row group summed in order), emulated on the CPU at
+    S 2048 with every decay at one clamp end, against the JAX package's
+    step-by-step oracle: 1e-4 of the max, the kernel's bound against the
+    plain version on the card."""
+    r, k, v, _, u = _inputs(1, 2048, 2, hd, seed=hd)
+    w = np.full_like(r, np.exp(-np.exp(logit)), dtype=np.float32)
+    y, s_fin = _kernel_order_scan(*(torch.from_numpy(a) for a in (r, k, v, w, u)))
+    want_y, want_s = rwkv6_scan_ref(*(jnp.asarray(a) for a in (r, k, v, w, u)))
+    assert np.isfinite(y.numpy()).all() and np.isfinite(s_fin.numpy()).all()
+    assert _rel(y.numpy(), want_y) <= TOL
+    assert _rel(s_fin.numpy(), want_s) <= TOL
+
+
+def test_stage_steps_is_the_kernels():
+    """The stage length the card tests probe is the one compiled in."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+           / "rwkv6_scan.cu").read_text()
+    assert f"constexpr int kT = {STAGE_STEPS};" in src
