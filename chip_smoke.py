@@ -31,12 +31,13 @@ Phases, each printing what it finds; any failure exits non-zero:
              against their plain versions at the LM path's shapes
              (Mistral-NeMo attention at S = 2048, a ragged S = 1000 and
              head width 64; RWKV-6's WKV at S = 2048 and a ragged S;
-             Jamba's scan at S = 2048, a ragged S = 1000 and from a
-             non-zero h0), each with its card time, the plain version's,
+             Jamba's scan at S = 2048, a ragged S = 1000, from a
+             non-zero h0 and with A drawn per element), each with its
+             card time, the plain version's,
              ``scaled_dot_product_attention`` for flash (a yardstick the
-             port never calls), bound and error; for WKV-6 also the
-             bytes it must move over its card time, and its share of
-             the bound.
+             port never calls), bound and error; for WKV-6 and the scan
+             also the bytes each must move over its card time, and its
+             share of the bound.
 6. lm      — Mistral-NeMo-12B and RWKV-6-7B at full width and depth, then
              Jamba-v0.1-52B at full width and 16 of its 32 layers (all 32
              hold 102.9 GB in bf16, more than the card's 80 GB), one
@@ -618,40 +619,50 @@ SFU_PER_CLOCK_SM = 16
 N_SMS = 132
 
 
+def scan_bytes(B, S, di, ns):
+    """Bytes the selective scan must move: dt, x read and y written once,
+    plus B, C, A, h0 and h_final."""
+    return 4 * (3 * B * S * di + 2 * B * S * ns + di * ns + 2 * B * di * ns)
+
+
 def scan_bound(B, S, di, ns):
-    """Least time (ms) for the selective scan, and what bounds it: dt, x
-    read and y written once (plus B, C, A, h0 and h_final) over memory
-    bandwidth, against the larger of its B*S*di*ns exponentials at the
-    SFU rate (16 per clock per SM at SM_CLOCK_HZ) and its fp32 flops at
-    the FMA peak (per state element and step: dt*A, a*h + (dt*x)*B as a
-    multiply and an FMA, y += h*C; 6 flops)."""
-    nbytes = 4 * (3 * B * S * di + 2 * B * S * ns + di * ns + 2 * B * di * ns)
+    """Least time (ms) for the selective scan, and what bounds it:
+    `scan_bytes` over memory bandwidth, against the larger of its
+    B*S*di*ns exponentials at the SFU rate (16 per clock per SM at
+    SM_CLOCK_HZ) and its fp32 flops at the FMA peak (per state element
+    and step: dt*A, a*h + (dt*x)*B as a multiply and an FMA, y += h*C;
+    6 flops)."""
     elems = float(B * S * di * ns)
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_bytes = scan_bytes(B, S, di, ns) / PEAK_BYTES_S * 1e3
     t_exp = elems / (SFU_PER_CLOCK_SM * N_SMS * SM_CLOCK_HZ) * 1e3
     t_fma = 6 * elems / PEAK_FLOPS[torch.float32] * 1e3
     t_ops = max(t_exp, t_fma)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def scan_inputs(B, S, di, ns, seed, h0):
+def scan_inputs(B, S, di, ns, seed, h0, a="init"):
     """As Jamba's mixer feeds the scan: dt = softplus(normal - 4.6) (the
-    init's dt_bias), A = -(1..ns) on every row (the init's A_log), B, C,
-    x normal; h0 zero, or normal when ``h0``."""
+    init's dt_bias), B, C, x normal; h0 zero, or normal when ``h0``. A is
+    the init's -(1..ns) on every row (``a="init"``, from A_log), or drawn
+    per element as trained weights would be, -exp(normal(0.5, 1.5)), so
+    that no two rows share a decay (``"random"``)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dt = torch.nn.functional.softplus(
         torch.randn((B, S, di), generator=gen, device="cuda") - 4.6)
     Bm = torch.randn((B, S, ns), generator=gen, device="cuda")
     Cm = torch.randn((B, S, ns), generator=gen, device="cuda")
     x = torch.randn((B, S, di), generator=gen, device="cuda")
-    A = -torch.arange(1, ns + 1, dtype=torch.float32, device="cuda").expand(di, ns)
+    if a == "init":
+        A = -torch.arange(1, ns + 1, dtype=torch.float32, device="cuda").expand(di, ns)
+    else:
+        A = -torch.exp(0.5 + 1.5 * torch.randn((di, ns), generator=gen, device="cuda"))
     h = (torch.randn((B, di, ns), generator=gen, device="cuda") if h0
          else torch.zeros((B, di, ns), device="cuda"))
     return dt, Bm, Cm, x, A.contiguous(), h
 
 
-def scan_case(B, S, di, ns, chunk, seed, h0=False):
-    ops = scan_inputs(B, S, di, ns, seed, h0)
+def scan_case(B, S, di, ns, chunk, seed, h0=False, a="init"):
+    ops = scan_inputs(B, S, di, ns, seed, h0, a)
     y, h = mamba_scan_call(*ops, chunk=chunk)
     y_want, h_want = mamba_scan_plain(*ops, chunk=chunk)
     torch.cuda.synchronize()
@@ -661,15 +672,18 @@ def scan_case(B, S, di, ns, chunk, seed, h0=False):
         (h - h_want).abs().max().item() / h_want.abs().max().item(),
     )
     check(rel <= SCAN_MAX_REL_ERR,
-          f"scan kernel vs plain at B={B} S={S} di={di} h0={h0}: rel err {rel:.3g}")
+          f"scan kernel vs plain at B={B} S={S} di={di} h0={h0} A={a}: "
+          f"rel err {rel:.3g}")
     ms = device_ms(lambda: mamba_scan_call(*ops, chunk=chunk), reps=10)
     plain_ms = device_ms(lambda: mamba_scan_plain(*ops, chunk=chunk), reps=3)
     bound_ms, bound_by = scan_bound(B, S, di, ns)
     return {
-        "B": B, "S": S, "di": di, "ns": ns, "h0": h0, "dtype": "float32",
+        "B": B, "S": S, "di": di, "ns": ns, "h0": h0, "A": a, "dtype": "float32",
         "max_abs_err": diff, "max_rel_err": rel, "ms": ms,
         "plain_ms": plain_ms, "library_ms": None,
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "bytes_per_s": scan_bytes(B, S, di, ns) / (ms * 1e-3),
+        "bound_share": bound_ms / ms,
     }
 
 
@@ -779,15 +793,21 @@ def phase_lm_kernels() -> tuple[dict, dict, dict]:
               f"{row['max_rel_err']:.3g}")
     jamba = load_config("jamba_v0_1_52b")
     di, ns, chunk = jamba.d_inner, jamba.mamba_d_state, jamba.mamba_chunk
-    print(f"[lmkern] scan B S di ns h0 | ms plain_ms bound_ms bound_by | "
-          f"max_rel_err  (plain: chunk {chunk}; bound: SFU at "
-          f"{SM_CLOCK_HZ / 1e9:g} GHz, memory at {PEAK_BYTES_S / 1e12:g} TB/s)")
+    print(f"[lmkern] scan B S di ns h0 A | ms plain_ms bound_ms bound_by TB/s "
+          f"bound/ms | max_rel_err  (plain: chunk {chunk}; bound: SFU at "
+          f"{SM_CLOCK_HZ / 1e9:g} GHz, memory at {PEAK_BYTES_S / 1e12:g} TB/s; "
+          "TB/s: the bytes the function must move over the card time; A: the "
+          "init's -(1..16) per row, or drawn per element)")
     scan_rows = []
-    for seed, (S, h0) in enumerate(((LM_PROMPT, False), (1000, False), (LM_PROMPT, True))):
-        row = scan_case(LM_BATCH, S, di, ns, chunk, 20 + seed, h0)
+    for seed, (S, h0, a) in enumerate(((LM_PROMPT, False, "init"),
+                                       (1000, False, "init"),
+                                       (LM_PROMPT, True, "init"),
+                                       (LM_PROMPT, True, "random"))):
+        row = scan_case(LM_BATCH, S, di, ns, chunk, 20 + seed, h0, a)
         scan_rows.append(row)
-        print(f"[lmkern] scan {LM_BATCH} {S} {di} {ns} {h0} | {row['ms']:.5f} "
-              f"{row['plain_ms']:.5f} {row['bound_ms']:.5f} {row['bound_by']} | "
+        print(f"[lmkern] scan {LM_BATCH} {S} {di} {ns} {h0} {a} | {row['ms']:.5f} "
+              f"{row['plain_ms']:.5f} {row['bound_ms']:.5f} {row['bound_by']} "
+              f"{row['bytes_per_s'] / 1e12:.3f} {row['bound_share']:.3f} | "
               f"{row['max_rel_err']:.3g}")
     return flash_rows[0], wkv_rows[0], scan_rows[0]
 
@@ -1074,7 +1094,7 @@ PREVIOUS_MS = {
     "preemptible_matmul_window": (0.08465, "the fp32-FMA kernel, PR 14"),
     "flash_attention": (2.56539, "the fp32-FMA kernel, PR 13"),
     "rwkv6_scan": (0.71597, "the step kernel before its TMA redesign"),
-    "mamba_scan": (0.48392, "PR 14"),
+    "mamba_scan": (0.47799, "the one-channel-per-thread kernel before its redesign"),
 }
 
 

@@ -3,7 +3,8 @@
 `mamba_scan_call` launches the CUDA kernel of
 ``repro_torch/csrc/mamba_scan.cu`` for CUDA tensors and runs the plain
 version (`ref.mamba_scan_plain`) for CPU tensors. For a CUDA tensor it
-launches or raises; it never falls back.
+launches or raises; it never falls back. The kernel reads dt, x, B and C
+and writes y through TMA tensor maps, STAGE_STEPS steps at a time.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from repro_torch.kernels.mamba_scan.ref import mamba_scan_plain
 
 #: d_state the CUDA kernel is compiled for (Jamba's)
 D_STATE = 16
+#: time steps the CUDA kernel stages per TMA box (``kT`` in the source)
+STAGE_STEPS = 32
 _GRID_Y_MAX = 65535
 
 
@@ -61,11 +64,12 @@ def mamba_scan_call(dt, B, C, x, A, h0, *, chunk: int):
 
     dt, x: (Bb, S, di); B, C: (Bb, S, ns); A: (di, ns); h0: (Bb, di, ns).
     Returns (y (Bb, S, di), h_final (Bb, di, ns)), float32. On CUDA every
-    operand must be float32 and contiguous and ns 16; the kernel runs the
-    recurrence step by step, so its result does not depend on ``chunk``
-    (the plain version's chunk length), runs on the current stream, and
-    each launch adds one to ``mamba_scan_call.launches``. CPU tensors take
-    the plain version and count nothing.
+    operand must be float32, contiguous and 16-byte aligned, di a multiple
+    of 4 and ns 16; the kernel runs the recurrence step by step, so its
+    result does not depend on ``chunk`` (the plain version's chunk
+    length), runs on the current stream, and each launch adds one to
+    ``mamba_scan_call.launches``. CPU tensors take the plain version and
+    count nothing.
     """
     _check(dt, B, C, x, A, h0, chunk)
     if x.device.type == "cpu":
@@ -82,8 +86,10 @@ def mamba_scan_call(dt, B, C, x, A, h0, *, chunk: int):
         raise ValueError("the CUDA kernel takes float32 dt, B, C, x, A, h0")
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("dt, B, C, x, A, h0 must be contiguous")
-    if A.data_ptr() % 16 or h0.data_ptr() % 16:
-        raise ValueError("A and h0 must be 16-byte aligned (float4 rows)")
+    if any(t.data_ptr() % 16 for t in ops):
+        raise ValueError("dt, B, C, x, A, h0 must be 16-byte aligned (TMA, float4 rows)")
+    if di % 4:
+        raise ValueError(f"d_inner must be a multiple of 4 (16-byte TMA rows), got {di}")
     if Bb > _GRID_Y_MAX:
         raise ValueError(f"batch {Bb} exceeds the grid's y limit")
     y = torch.empty_like(x)

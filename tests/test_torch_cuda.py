@@ -20,7 +20,8 @@ kernel must ignore what lies outside its (batch row, head), or run
 twice on the same inputs, the result is held bit for bit. Selective scan:
 the kernel's step-by-step recurrence against the plain chunked scan,
 which multiplies the same decays in another order (1e-4 of the max, the
-reference's tolerance between its kernel and its oracle). int8-KV
+reference's tolerance between its kernel and its oracle); held bit for
+bit where the kernel must ignore another batch row or run twice. int8-KV
 decode step: the card's bf16-operand, fp32-result products against the
 CPU's fp32 products of the same bf16-rounded operands, which differ only
 in summation order (1e-5 of the max in fp32; relative L2 3e-2 in bf16,
@@ -34,6 +35,7 @@ import torch
 from repro_torch.configs import load_config, smoke_config
 from repro_torch.kernels.flash_attention.kernel import flash_attention_call
 from repro_torch.kernels.flash_attention.ref import attention_plain, tol_ratio
+from repro_torch.kernels.mamba_scan.kernel import STAGE_STEPS as SCAN_STAGE_STEPS
 from repro_torch.kernels.mamba_scan.kernel import mamba_scan_call
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_plain
 from repro_torch.kernels.preemptible_matmul import grid_geometry, matmul_resumable
@@ -318,16 +320,26 @@ def test_wkv6_kernel_refuses_what_it_does_not_take(card):
     assert rwkv6_scan_call.launches == before
 
 
-def _scan_inputs(card, B, S, di, ns, seed, h0=False):
-    """As the model feeds the scan: dt = softplus(normal - 2), A = -(1..ns)
-    per row (the model's init), B, C, x normal; h0 zero or normal."""
+def _scan_inputs(card, B, S, di, ns, seed, h0=False, a="init"):
+    """As the model feeds the scan: dt = softplus(normal - 2), B, C, x
+    normal; h0 zero or normal. A is the model's init, -(1..ns) on every
+    row (``a="init"``), or drawn per element, -exp(normal(0.5, 1.5)), so
+    that no two rows share a decay (``"random"``); ``"underflow"`` also
+    sets dt to 50 on every 16th step, so that dt * A reaches -1e3 and the
+    decays flush to 0."""
     gen = torch.Generator(device=card).manual_seed(seed)
     dt = torch.nn.functional.softplus(
         torch.randn((B, S, di), generator=gen, device=card) - 2.0)
     Bm = torch.randn((B, S, ns), generator=gen, device=card)
     Cm = torch.randn((B, S, ns), generator=gen, device=card)
     x = torch.randn((B, S, di), generator=gen, device=card)
-    A = -torch.arange(1, ns + 1, dtype=torch.float32, device=card).expand(di, ns).contiguous()
+    if a == "init":
+        A = -torch.arange(1, ns + 1, dtype=torch.float32, device=card).expand(di, ns).contiguous()
+    else:
+        A = -torch.exp(0.5 + 1.5 * torch.randn((di, ns), generator=gen, device=card))
+    if a == "underflow":
+        dt[:, ::16] = 50.0
+        assert (dt[..., None] * A).min().item() < -1e3
     h = (torch.randn((B, di, ns), generator=gen, device=card) if h0
          else torch.zeros((B, di, ns), device=card))
     return dt, Bm, Cm, x, A, h
@@ -335,20 +347,66 @@ def _scan_inputs(card, B, S, di, ns, seed, h0=False):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "B,S,di,h0", [(2, 256, 512, False), (1, 1000, 8192, False),
-                  (2, 77, 96, True), (3, 64, 8200, True)],
+    "B,S,di,h0,a",
+    [(2, 256, 512, False, "init"), (1, 1000, 8192, False, "init"),
+     (2, 77, 96, True, "init"), (3, 64, 8200, True, "init"),
+     # S at and around one TMA stage of the kernel, and past 2048
+     (1, 1, 96, True, "random"), (1, SCAN_STAGE_STEPS - 1, 96, True, "random"),
+     (1, SCAN_STAGE_STEPS, 96, True, "random"),
+     (1, SCAN_STAGE_STEPS + 1, 96, True, "random"), (2, 1000, 96, True, "random"),
+     (1, 2049, 96, True, "random"),
+     (1, 16, 96, True, "random"), (1, 17, 96, True, "random"),  # its 16-step groups
+     # d_inner not a multiple of the block's channels
+     (3, 100, 8200, True, "random"), (3, 40, 100, True, "random"),
+     (2, 2048, 8192, True, "random"),  # the main path's shape, A per element
+     (2, 300, 512, True, "underflow")],
 )
-def test_mamba_scan_kernel_matches_plain(card, B, S, di, h0):
-    """Ragged S, d_inner not a multiple of the block, non-zero h0."""
-    ops = _scan_inputs(card, B, S, di, 16, S + di, h0)
+def test_mamba_scan_kernel_matches_plain(card, B, S, di, h0, a):
+    """Ragged S, d_inner not a multiple of the block, non-zero h0, A per
+    element, decays that flush to 0."""
+    ops = _scan_inputs(card, B, S, di, 16, S + di, h0, a)
     before = mamba_scan_call.launches
     y, h = mamba_scan_call(*ops, chunk=64)
     assert mamba_scan_call.launches == before + 1
     y_want, h_want = mamba_scan_plain(*ops, chunk=64)
     torch.cuda.synchronize()
     assert y.shape == (B, S, di) and h.shape == (B, di, 16)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(h).all())
     assert _rel(y, y_want) <= 1e-4
     assert _rel(h, h_want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dirty", [0, 1])
+def test_mamba_scan_kernel_reads_only_its_own_batch_row(card, dirty):
+    """NaN in every operand's batch row ``dirty`` and past the end of
+    dt, B, C and x, with S ragged against the stage: the other batch row
+    comes out finite and equal to a clean run's, bit for bit. Its steps
+    past S are the dirty row's first steps (row 0 clean) or the NaN tail
+    (row 1 clean)."""
+    B, S, di = 2, SCAN_STAGE_STEPS + 13, 100
+    clean = _scan_inputs(card, B, S, di, 16, 7, True, "random")
+    y_clean, h_clean = mamba_scan_call(*clean, chunk=64)
+    dt, Bm, Cm, x, A, h0 = (t.clone() for t in clean)
+    for t in (dt, Bm, Cm, x, h0):
+        t[dirty] = float("nan")
+    dt, Bm, Cm, x = (_nan_tailed(t) for t in (dt, Bm, Cm, x))
+    y, h = mamba_scan_call(dt, Bm, Cm, x, A, h0, chunk=64)
+    torch.cuda.synchronize()
+    keep = 1 - dirty
+    assert bool(torch.isfinite(y[keep]).all() and torch.isfinite(h[keep]).all())
+    assert torch.equal(y[keep], y_clean[keep])
+    assert torch.equal(h[keep], h_clean[keep])
+
+
+@pytest.mark.cuda
+def test_mamba_scan_kernel_is_deterministic(card):
+    """Two launches on the same inputs: bit-identical y and h."""
+    ops = _scan_inputs(card, 2, 300, 8200, 16, 3, True, "random")
+    y1, h1 = mamba_scan_call(*ops, chunk=64)
+    y2, h2 = mamba_scan_call(*ops, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
 
 
 @pytest.mark.cuda
@@ -364,6 +422,16 @@ def test_mamba_scan_kernel_refuses_what_it_does_not_take(card):
     small = _scan_inputs(card, 1, 16, 64, 8, 0)
     with pytest.raises(ValueError, match="d_state 16"):
         mamba_scan_call(*small, chunk=8)
+    ops = [dt, Bm, Cm, x, A, h0]
+    for i in range(6):  # each operand 4 bytes into its storage
+        shifted = torch.empty(ops[i].numel() + 1, device=card)[1:].view(ops[i].shape)
+        shifted.copy_(ops[i])
+        assert shifted.is_contiguous() and shifted.data_ptr() % 16
+        with pytest.raises(ValueError, match="aligned"):
+            mamba_scan_call(*ops[:i], shifted, *ops[i + 1:], chunk=8)
+    odd = _scan_inputs(card, 1, 16, 66, 16, 0)  # rows of 264 bytes
+    with pytest.raises(ValueError, match="multiple of 4"):
+        mamba_scan_call(*odd, chunk=8)
     assert mamba_scan_call.launches == before
 
 

@@ -11,7 +11,9 @@ Tolerances, with their reasons:
 
 - the scan: 1e-4 of the max for y and h_final, the reference's own
   tolerance between its chunked kernel and its oracle (the scans
-  multiply the same decays in another order; observed ~1e-7).
+  multiply the same decays in another order; observed ~1e-7). The CUDA
+  kernel's own order of summation is emulated here and held to the same
+  bound, as the card holds the kernel to the plain version.
 - the mixer in float32: 1e-4 of the max (same arithmetic in another
   order), except the conv cache, which both sides round to bf16 from
   fp32 values ~1e-7 apart: a rounding can flip there, so it is held to
@@ -21,6 +23,8 @@ Tolerances, with their reasons:
   the conv's products) at the same places but not always to the same
   ulp; one layer's output is observed ~0.5% apart.
 """
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,13 +34,14 @@ import torch
 from repro.configs.base import smoke_config as ref_smoke_config
 from repro.configs.jamba_v0_1_52b import CONFIG as REF_JAMBA
 from repro.kernels.mamba_scan import mamba_scan as ref_scan
+from repro.kernels.mamba_scan.kernel import mamba_scan_call as ref_scan_call
 from repro.kernels.mamba_scan.ops import _shrink_to_divisor
 from repro.kernels.mamba_scan.ref import mamba_scan_ref
 from repro.models import ssm as RS
 from repro_torch import convert
 from repro_torch.configs import load_config, smoke_config
 from repro_torch.kernels.mamba_scan import mamba_scan
-from repro_torch.kernels.mamba_scan.kernel import mamba_scan_call
+from repro_torch.kernels.mamba_scan.kernel import STAGE_STEPS, mamba_scan_call
 from repro_torch.kernels.mamba_scan.ref import chunk_size, mamba_scan_steps
 from repro_torch.models import ssm as S
 
@@ -117,6 +122,78 @@ def test_scan_takes_large_negative_decay_exponents():
     want_y, want_h = mamba_scan_steps(*t)
     assert _rel(y, want_y) <= TOL
     assert _rel(h, want_h) <= TOL
+
+
+#: lanes that share a channel's 16 states in the CUDA kernel (``kLanes``)
+KERNEL_LANES = 4
+LOG2E = 1.4426950408889634
+
+
+def _kernel_order_scan(dt, Bm, Cm, x, A, h0, lanes=KERNEL_LANES):
+    """The CUDA kernel's arithmetic, step by step in float32: each decay
+    as 2^(dt * (A log2 e)) with results below 2^-126 flushed to 0 (one
+    ``ex2.approx.ftz``), y as the partial sums of ``lanes`` lanes, lane g
+    summing states g, g + lanes, g + 2 lanes, ... in that order, added in
+    pairs: (y_0 + y_1) + (y_2 + y_3)."""
+    a2 = A * torch.tensor(LOG2E, dtype=torch.float32)
+    h = h0.clone()
+    ns = A.shape[1]
+    per = ns // lanes
+    ys = []
+    for t in range(x.shape[1]):
+        e = torch.exp2(dt[:, t, :, None] * a2)
+        e = torch.where(e < 2.0**-126, torch.zeros_like(e), e)
+        h = e * h + (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
+        hc = h * Cm[:, t, None, :]
+        parts = []
+        for g in range(lanes):
+            acc = hc[..., g]
+            for j in range(1, per):
+                acc = acc + hc[..., g + lanes * j]
+            parts.append(acc)
+        while len(parts) > 1:
+            parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+        ys.append(parts[0])
+    return torch.stack(ys, dim=1), h
+
+
+@pytest.mark.parametrize("underflow", [False, True])
+def test_kernel_summation_order_matches_reference(underflow):
+    """The CUDA kernel's order (states split over 4 lanes by n mod 4, y
+    summed across them in pairs, one flushed exp2 per decay), emulated on
+    the CPU at S 2048 with A drawn per element and h0 normal, against the
+    JAX package's Pallas kernel (interpret mode) and its associative-scan
+    oracle: 1e-4 of the max, the kernel's bound against the plain version
+    on the card. dt is the model's softplus(normal - 4.6), so that most
+    decays stay near 1 for hundreds of steps; with ``underflow`` every
+    16th step has dt 50 and dt * A reaches -1e3."""
+    rng = np.random.default_rng(18)
+    Bb, S_, di, ns = 1, 2048, 32, 16
+    dt = np.log1p(np.exp(rng.standard_normal((Bb, S_, di)) - 4.6)).astype(np.float32)
+    if underflow:
+        dt[:, ::16] = 50.0
+    Bm = rng.standard_normal((Bb, S_, ns)).astype(np.float32)
+    Cm = rng.standard_normal((Bb, S_, ns)).astype(np.float32)
+    x = rng.standard_normal((Bb, S_, di)).astype(np.float32)
+    A = -np.exp(0.5 + 1.5 * rng.standard_normal((di, ns))).astype(np.float32)
+    h0 = rng.standard_normal((Bb, di, ns)).astype(np.float32)
+    arrs = (dt, Bm, Cm, x, A, h0)
+    assert ((dt[..., None] * A).min() < -1e3) == underflow
+    y, h = _kernel_order_scan(*(torch.from_numpy(a) for a in arrs))
+    assert bool(torch.isfinite(y).all() and torch.isfinite(h).all())
+    j = [jnp.asarray(a) for a in arrs]
+    for want_y, want_h in (ref_scan_call(*j, chunk=256), mamba_scan_ref(*j)):
+        assert _rel(y, want_y) <= TOL
+        assert _rel(h, want_h) <= TOL
+
+
+def test_kernel_constants_are_the_sources():
+    """The stage length the card tests probe, and the lane split the
+    emulation above follows, are the ones compiled in."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+           / "mamba_scan.cu").read_text()
+    assert f"constexpr int kT = {STAGE_STEPS};" in src
+    assert f"constexpr int kLanes = {KERNEL_LANES};" in src
 
 
 @pytest.mark.parametrize("S_", [1, 7, 48, 100, 256, 2048])
