@@ -12,13 +12,16 @@ Phases, each printing what it finds; any failure exits non-zero:
              PyTorch version on the card, at the serving path's shapes
              (M = 128 and the steady_city (K, N) chain, both window
              geometries; M = 1024 as examples/serve_edf.py), fp32 and
-             bf16, plus one preempt/resume identity. Prints per shape the
+             bf16, plus one preempt/resume identity; and at the largest
+             K and the largest N of the StableLM-1.6B decode chain the
+             gateway serves, in four-tile windows. Prints per shape the
              kernel's time (CUDA events), the plain version's, one
              ``torch.addmm`` over the same window (a yardstick the port
              never calls) and the bound from bytes and operations. Times
              are the card's own (CUDA-graph replay between CUDA events),
              and for the kernel also per launch from Python.
-3. serve   — steady_city at full width (``max_dim=None``) under FIFO and
+3. serve   — steady_city, on the design the port's DSE picks, at full
+             width (``max_dim=None``) under FIFO and
              EDF, both geometries, on a virtual clock driven by the exec
              cost model: the report must equal the port's own CPU run of
              the same tasks and inputs field for field, the finished
@@ -27,7 +30,26 @@ Phases, each printing what it finds; any failure exits non-zero:
 4. wall    — a short wall-clock run on the card under the PyTorch
              profiler (the card's busy time by kernel, and so its idle
              share), then ``CostModel.calibrate`` with CUDA events.
-5. lmkern  — the flash-attention, WKV-6 and selective-scan kernels
+5. gateway — the port's DSE picks the designs of steady_city (checked
+             against the JAX package's pick), rush_hour, overload_2x,
+             av_stack and copilot_decode, printing each search's own
+             time. Then rush_hour, overload_2x (reject-newest shedding,
+             which must shed) and av_stack (the mixed-criticality mode
+             switch, which must switch) at full width, then
+             copilot_decode's StableLM-1.6B decode chain (121 layers,
+             8.09 GB fp32, 1300 four-tile windows per job) beside its
+             DeiT safety tenant for 4 decode periods, each through a
+             `TrafficGateway` on a virtual clock driven by the exec cost
+             model: the card's report must equal the port's CPU run of
+             the same bundle field for field, the window kernel's
+             launches must equal the windows executed plus the warm-up,
+             and every finished job's chained output of every tenant is
+             held against a float64 chain on the card. StableLM's chain
+             bound must also fail the same chain through 1xTF32
+             products. Last, a short wall-clock run of rush_hour under
+             the profiler (busy share, windows per second, host time per
+             window, per-tenant releases, sheds, misses and p99).
+6. lmkern  — the flash-attention, WKV-6 and selective-scan kernels
              against their plain versions at the LM path's shapes
              (Mistral-NeMo attention at S = 2048, a ragged S = 1000 and
              head width 64; RWKV-6's WKV at S = 2048 and a ragged S;
@@ -38,7 +60,7 @@ Phases, each printing what it finds; any failure exits non-zero:
              port never calls), bound and error; for WKV-6 and the scan
              also the bytes each must move over its card time, and its
              share of the bound.
-6. lm      — Mistral-NeMo-12B and RWKV-6-7B at full width and depth, then
+7. lm      — Mistral-NeMo-12B and RWKV-6-7B at full width and depth, then
              Jamba-v0.1-52B at full width and 16 of its 32 layers (all 32
              hold 102.9 GB in bf16, more than the card's 80 GB), one
              after the other, with random bf16 weights from a CUDA
@@ -52,7 +74,7 @@ Phases, each printing what it finds; any failure exits non-zero:
              against the port's own CPU run of the same weights and
              tokens, and the times under the PyTorch profiler with the
              card's busy share.
-7. report  — a ``kernels`` JSON line, the card's name and power limit,
+8. report  — a ``kernels`` JSON line, the card's name and power limit,
              and the result line.
 
 Exits with code 2 and prints no result when no CUDA card is visible.
@@ -60,6 +82,7 @@ Exits with code 2 and prints no result when no CUDA card is visible.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 import math
 import os
@@ -78,10 +101,8 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch import _build  # noqa: E402
 from repro_torch.configs import load_config  # noqa: E402
 from repro_torch.conformance import CostModel  # noqa: E402
-from repro_torch.core.dse.space import DesignPoint  # noqa: E402
-from repro_torch.core.perfmodel.exec_model import AccDesign  # noqa: E402
+from repro_torch.core.dse import explore  # noqa: E402
 from repro_torch.core.perfmodel.hardware import paper_platform  # noqa: E402
-from repro_torch.core.workloads import PAPER_WORKLOADS, make_taskset  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_call,
 )
@@ -113,20 +134,32 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.module import param_bytes, param_count  # noqa: E402
 from repro_torch.pipeline import PharosServer, design_to_segments  # noqa: E402
 from repro_torch.pipeline.serve import window_plan  # noqa: E402
+from repro_torch.traffic import (  # noqa: E402
+    CRITICALITY_HI,
+    AdmissionController,
+    ModeController,
+    TrafficGateway,
+    build,
+    get_scenario,
+    materialize,
+    resolve_problem,
+)
 from repro_torch.traffic.clock import VirtualClock, WallClock  # noqa: E402
+from repro_torch.traffic.shedding import get_policy  # noqa: E402
 
 BLOCK = (128, 128, 128)
 WINDOW_TILES = 4  # PharosServer's default, the "pallas" geometry's request
 
-#: steady_city (src/repro/traffic/scenarios.py), the paper's
-#: smart-transportation baseline, on the design the JAX package's DSE
-#: picks for it: ``build(get_scenario("steady_city"), paper_platform())``
-#: in repro.traffic.scenarios. The DSE is not ported yet, so the design
-#: is held here; tests/test_torch_serve.py checks it against that build.
-STEADY_CITY_TENANTS = (("pointnet", 1.0), ("mlp_mixer", 0.8))  # (workload, ratio)
-STEADY_CITY_ACCS = ((1, (256, 128, 128)), (1, (512, 128, 256)), (14, (128, 128, 128)))
-STEADY_CITY_SPLITS = ((4, 1), (1, 1), (3, 6))  # [stage][task] layer counts
-STEADY_CITY_MAX_UTIL = 0.9205637872700669
+#: steady_city's design (accelerators as (chips, block), [stage][task]
+#: layer splits, max_util) as the JAX package's DSE picks it. Earlier
+#: versions of this script served it from these constants; the port's
+#: own DSE now picks the design, and the gateway phase checks that it
+#: is this one.
+STEADY_CITY_REFERENCE_DESIGN = (
+    ((1, (256, 128, 128)), (1, (512, 128, 256)), (14, (128, 128, 128))),
+    ((4, 1), (1, 1), (3, 6)),
+    0.9205637872700669,
+)
 
 #: published H100 SXM peaks (NVIDIA data sheet, dense), at 700 W
 PEAK_BYTES_S = 3.35e12
@@ -142,29 +175,54 @@ FLASH_SPLIT_PRODUCTS = 1.5
 #: products are exact in fp32 on both sides
 MAX_REL_ERR = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 #: chained outputs of a full-width job, card vs CPU: 8 fp32 layers of
-#: K up to 3072 summed in different orders (per layer ~1e-6 relative)
+#: K up to 3072 summed in different orders (per layer ~1e-6 relative).
+#: It also bounds StableLM-1.6B's decode chain against float64: 121 fp32
+#: layers of K up to 11264. On an H100 80GB HBM3 at 700 W the 3xTF32
+#: windows read 6.9e-6 of the max there; the same chain through one
+#: TF32 product per fp32 one (a window that dropped the two correction
+#: products) reads 3.4e-3. The bound sits between them, so a
+#: lower-precision window fails it; the gateway phase checks that the
+#: TF32 yardstick's reading exceeds it.
 CHAIN_REL_TOL = 1e-4
 
 
+def build_search() -> dict:
+    """The DSE search `repro_torch.traffic.scenarios.build` runs: beam,
+    at build's own defaults for ``max_m`` and ``beam_width``."""
+    params = inspect.signature(build).parameters
+    return dict(method="beam", max_m=params["max_m"].default,
+                beam_width=params["beam_width"].default)
+
+
+def search_design(name: str):
+    """``(built scenario, explore result)``: the port's DSE runs the
+    search `traffic.scenarios.build` runs, and `build` materializes the
+    design it picks into the scenario's contracts and seeded traffic."""
+    scenario, platform = get_scenario(name), paper_platform()
+    workloads, taskset = resolve_problem(scenario, platform)
+    res = explore(workloads, taskset, platform, **build_search())
+    check(res.best is not None, f"{name}: the DSE found a feasible design")
+    return build(scenario, platform, design=res.best), res
+
+
+def design_summary(design) -> tuple:
+    """A design as (accelerators as (chips, block), splits, max_util)."""
+    return (tuple((a.chips, tuple(a.block)) for a in design.accs),
+            design.splits, design.max_util)
+
+
 def steady_city(*, device, max_dim=None, period_scale=1.0, seed=0):
-    """``(design, workloads, taskset, serve_tasks)`` of steady_city;
-    the same ``seed`` gives the same weights on every device."""
-    names = tuple(n for n, _ in STEADY_CITY_TENANTS)
-    taskset = make_taskset(
-        names, tuple(r for _, r in STEADY_CITY_TENANTS), paper_platform()
-    )
-    workloads = [PAPER_WORKLOADS[n] for n in names]
-    design = DesignPoint(
-        accs=tuple(AccDesign(chips=c, block=b) for c, b in STEADY_CITY_ACCS),
-        splits=STEADY_CITY_SPLITS,
-        max_util=STEADY_CITY_MAX_UTIL,
-    )
+    """``(design, workloads, taskset, serve_tasks)`` of steady_city (the
+    paper's smart-transportation baseline, PointNet + MLP-Mixer) on the
+    design the port's DSE picks for it; the same ``seed`` gives the same
+    weights on every device."""
+    built, _ = search_design("steady_city")
     tasks = design_to_segments(
-        design, workloads, taskset,
+        built.design, list(built.workloads), built.taskset,
         generator=torch.Generator().manual_seed(seed),
         rows=128, max_dim=max_dim, period_scale=period_scale, device=device,
     )
-    return design, workloads, taskset, tasks
+    return built.design, list(built.workloads), built.taskset, tasks
 
 
 def check(ok: bool, what: str) -> None:
@@ -322,6 +380,12 @@ def phase_kernel() -> tuple[list[dict], dict]:
     for K, N in ((512, 1024), (1024, 1024), (1024, 512)):  # serve_edf.py
         _, _, _, total = grid_geometry(1024, N, K, BLOCK)
         cases.append((1024, K, N, pick_window(total, 2), "pallas", None))
+    # the gateway's StableLM-1.6B decode chain: its largest K and its
+    # largest N, in the gateway's four-tile windows
+    for K, N, n_layers in STABLELM_WINDOWS:
+        window, n_win = window_plan(128, N, K, block=BLOCK, backend=GATEWAY_BACKEND,
+                                    window_tiles=WINDOW_TILES)
+        cases.append((128, K, N, window, "stablelm", n_win * n_layers))
     rows = []
     print("[kernel] M K N window geometry launches/job dtype | ms launch_ms "
           "plain_ms addmm_ms bound_ms bound_by fp32_fma_bound_ms | max_rel_err  "
@@ -330,19 +394,21 @@ def phase_kernel() -> tuple[list[dict], dict]:
           f"{PEAK_TF32_FLOPS / 1e12:g} TFLOP/s; fp32_fma_bound_ms: the same "
           f"flops at the fp32 FMA peak, {PEAK_FLOPS[torch.float32] / 1e12:g} "
           "TFLOP/s)")
-    for seed, (M, K, N, window, backend, per_job) in enumerate(cases):
+    for seed, (M, K, N, window, geometry, per_job) in enumerate(cases):
+        backend = GATEWAY_BACKEND if geometry == "stablelm" else geometry
         dtypes = [torch.float32]
         if M == 128 and backend == "jnp" and K >= 1024:
             dtypes.append(torch.bfloat16)
         for dtype in dtypes:
             row = kernel_case(M, K, N, window, dtype, seed)
-            row.update(geometry=backend, launches_per_job=per_job)
+            row.update(geometry=backend, launches_per_job=per_job,
+                       chain="stablelm" if geometry == "stablelm" else "steady_city")
             rows.append(row)
             lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.5f}"
             fma = ("-" if row["fp32_fma_bound_ms"] is None
                    else f"{row['fp32_fma_bound_ms']:.5f}")
             print(
-                f"[kernel] {M} {K} {N} {window} {backend} {per_job or '-'} "
+                f"[kernel] {M} {K} {N} {window} {geometry} {per_job or '-'} "
                 f"{row['dtype']} | {row['ms']:.5f} {row['launch_ms']:.5f} "
                 f"{row['plain_ms']:.5f} "
                 f"{lib} {row['bound_ms']:.5f} {row['bound_by']} {fma} | "
@@ -367,29 +433,37 @@ def phase_kernel() -> tuple[list[dict], dict]:
     rel = ((c2 - full).abs().max() / full.abs().max()).item()
     check(prog2.done and rel <= 1e-5, f"resumed product rel err {rel:.3g}")
     print(f"[kernel] preempt/resume identity: rel err {rel:.3g}")
-    main = [r for r in rows if r["M"] == 128 and r["dtype"] == "float32"]
+    main = [r for r in rows if r["M"] == 128 and r["dtype"] == "float32"
+            and r["chain"] == "steady_city"]
     headline = max(main, key=lambda r: r["K"] * r["N"] * r["window"])
     return rows, headline
 
 
-def _serve(tasks, inputs, device, policy, backend, cost_model, horizon):
-    """One virtual-clock run; returns the report and each task's first
-    finished chained output."""
-    clk = VirtualClock()
-    srv = PharosServer(
-        tasks, len(STEADY_CITY_ACCS), policy=policy, backend=backend,
-        window_tiles=WINDOW_TILES, inputs=inputs, device=device,
-        clock=clk.now, sleep=clk.sleep, cost_model=cost_model,
-    )
-    outputs = {}
+def capture_outputs(srv, on_output) -> None:
+    """Call ``on_output(task_id, c_acc)`` with each job's chained output
+    as the job finishes its last layer (before the server forwards or
+    completes it)."""
     finish = srv._finish_layer_or_forward
 
     def capture(job, now):
         if job.layer == len(srv.tasks[job.task_id].weights) - 1:
-            outputs.setdefault(job.task_id, job.c_acc.detach().cpu().clone())
+            on_output(job.task_id, job.c_acc)
         finish(job, now)
 
     srv._finish_layer_or_forward = capture
+
+
+def _serve(tasks, n_stages, inputs, device, policy, backend, cost_model, horizon):
+    """One virtual-clock run; returns the report and each task's first
+    finished chained output."""
+    clk = VirtualClock()
+    srv = PharosServer(
+        tasks, n_stages, policy=policy, backend=backend,
+        window_tiles=WINDOW_TILES, inputs=inputs, device=device,
+        clock=clk.now, sleep=clk.sleep, cost_model=cost_model,
+    )
+    outputs = {}
+    capture_outputs(srv, lambda i, y: outputs.setdefault(i, y.detach().cpu().clone()))
     report = srv.run(horizon)
     return report, outputs
 
@@ -424,13 +498,15 @@ def phase_serve() -> int:
         for policy in ("fifo", "edf"):
             before = matmul_window_call.launches
             t0 = time.perf_counter()
-            rep, out = _serve(gpu_tasks, inputs, "cuda", policy, backend, cm, horizon)
+            rep, out = _serve(gpu_tasks, design.n_stages, inputs, "cuda", policy,
+                              backend, cm, horizon)
             torch.cuda.synchronize()
             t_gpu = time.perf_counter() - t0
             launched = matmul_window_call.launches - before
             total += launched
             t0 = time.perf_counter()
-            rep_cpu, out_cpu = _serve(cpu_tasks, inputs, "cpu", policy, backend, cm, horizon)
+            rep_cpu, out_cpu = _serve(cpu_tasks, design.n_stages, inputs, "cpu",
+                                      policy, backend, cm, horizon)
             t_cpu = time.perf_counter() - t0
             check(
                 dataclasses.asdict(rep) == dataclasses.asdict(rep_cpu),
@@ -471,9 +547,9 @@ def phase_serve() -> int:
 
 def phase_wall() -> None:
     period_scale = 100.0  # analytic periods of ~0.1 ms -> ~5-11 ms
-    _, _, _, tasks = steady_city(device="cuda", period_scale=period_scale)
+    design, _, _, tasks = steady_city(device="cuda", period_scale=period_scale)
     clk = WallClock()
-    srv = PharosServer(tasks, len(STEADY_CITY_ACCS), policy="edf",
+    srv = PharosServer(tasks, design.n_stages, policy="edf",
                        device="cuda", clock=clk.now, sleep=clk.sleep)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
@@ -515,12 +591,309 @@ def phase_wall() -> None:
               f"[{per_window}]")
     # the measured model drives a virtual-clock run of the same tasks
     vclk = VirtualClock()
-    rep_v = PharosServer(tasks, len(STEADY_CITY_ACCS), policy="edf",
+    rep_v = PharosServer(tasks, design.n_stages, policy="edf",
                          device="cuda", clock=vclk.now, sleep=vclk.sleep,
                          cost_model=cm).run(0.05)
     check(rep_v.jobs_completed > 0, "calibrated model drives serving")
     print(f"[wall] calibrated virtual run: completed {rep_v.jobs_completed} "
           f"misses {sum(rep_v.deadline_misses.values())}")
+
+
+# ---------------------------------------------------------------------------
+# The traffic gateway: the port's DSE picks each scenario's design; the
+# gateway admits tenants, sheds or switches mode under overload, and
+# releases their traffic into PharosServer
+# ---------------------------------------------------------------------------
+#: scenarios whose designs the port's DSE picks on the card
+GATEWAY_DESIGNS = ("steady_city", "rush_hour", "overload_2x", "av_stack",
+                   "copilot_decode")
+#: served at full width on a virtual clock: (scenario, horizon in periods
+#: of its slowest tenant's contract)
+GATEWAY_RUNS = (("rush_hour", 60.0), ("overload_2x", 60.0), ("av_stack", 40.0))
+#: copilot_decode's horizon, in periods of its StableLM-1.6B decode
+#: tenant's contract
+COPILOT_PERIODS = 4.0
+#: the gateway's window geometry: four-tile windows ("pallas"), so one
+#: StableLM-1.6B decode job (5200 output tiles) is 1300 windows
+GATEWAY_BACKEND = "pallas"
+#: the wall-clock gateway run: rush_hour with its periods x100, 0.3 s
+GATEWAY_WALL_SCALE, GATEWAY_WALL_S = 100.0, 0.3
+#: the StableLM-1.6B decode chain's window shapes timed in phase 2, as
+#: (K, N, layers of that shape): the largest K (the 24 MLP down
+#: projections) and the largest N (the LM head)
+STABLELM_WINDOWS = ((11264, 2048, 24), (2048, 100352, 1))
+
+
+def gateway_bundle(built, *, device, max_dim=None, seed=0, period_scale=1.0,
+                   backend=GATEWAY_BACKEND):
+    """``(serve tasks, contracts, traffic, cost model)`` of a built
+    scenario: its GEMM chains on ``device`` (weights from ``seed``) and
+    the exec model's per-window WCETs in the window geometry
+    ``backend``."""
+    tasks, requests, arrivals = built.serve_bundle(
+        period_scale=period_scale, seed=seed, max_dim=max_dim, device=device)
+    cm = CostModel.from_exec_model(
+        built.design, list(built.workloads), tasks, backend=backend,
+        window_tiles=WINDOW_TILES, period_scale=period_scale)
+    return tasks, requests, arrivals, cm
+
+
+def serve_gateway(built, tasks, requests, arrivals, *, device, horizon,
+                  cost_model=None, clock=None, inputs=None, on_output=None,
+                  trace=None, on_server=None, backend=GATEWAY_BACKEND):
+    """One `TrafficGateway` run of ``built``'s tenants in front of a
+    `PharosServer` on ``device``, in the window geometry ``backend``: on
+    a `VirtualClock` driven by ``cost_model``, or on ``clock`` (a
+    `WallClock`). Tenants pass admission against the design's segment
+    table; the one overload authority is the mixed-criticality
+    `ModeController` where a tenant is HI, else reject-newest shedding
+    (examples/serve_gateway.py).
+    ``on_output(task_id, y)`` sees every finished job's chained output;
+    ``on_server(server)`` is called before the run. Returns the
+    `GatewayReport` and the server."""
+    policy = built.scenario.policy
+    clk = clock if clock is not None else VirtualClock()
+    srv = PharosServer(
+        tasks, built.design.n_stages, policy=policy, backend=backend,
+        window_tiles=WINDOW_TILES, inputs=inputs, device=device,
+        clock=clk.now, sleep=clk.sleep, cost_model=cost_model, trace=trace,
+    )
+    admission = AdmissionController(list(built.table.overhead),
+                                    preemptive=policy == "edf")
+    mixed = any(r.criticality == CRITICALITY_HI for r in requests)
+    gateway = TrafficGateway(
+        srv, admission, list(requests), list(arrivals),
+        shedding=None if mixed else get_policy("reject_newest"),
+        modes=ModeController(admission, list(requests)) if mixed else None,
+        clock=clk, trace=trace,
+    )
+    if on_output is not None:
+        capture_outputs(srv, on_output)
+    if on_server is not None:
+        on_server(srv)
+    return gateway.run(horizon), srv
+
+
+def chain64(task, x):
+    """``task``'s chain over ``x`` in float64 where its weights lie
+    (`torch.matmul`, a yardstick off the main path)."""
+    y = x.to(task.weights[0].device, torch.float64)
+    for w in task.weights:
+        y = y @ w.double()
+    return y
+
+
+def chain_tf32(task, x):
+    """``task``'s chain over ``x`` in fp32 with TF32 products allowed
+    (one TF32 product per fp32 one; a yardstick off the main path)."""
+    allowed = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        y = x.to("cuda", torch.float32)
+        for w in task.weights:
+            y = y @ w
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allowed
+    return y
+
+
+class ChainCheck:
+    """``on_output`` for `serve_gateway`: each finished job's chained
+    output against its task's float64 chain, as max |error| over max
+    |float64|; ``errors[i]`` lists task ``i``'s jobs in finishing order."""
+
+    def __init__(self, want):
+        self.want = want
+        self.scale = [w.abs().max().item() for w in want]
+        self.errors = [[] for _ in want]
+
+    def __call__(self, i, y):
+        check(bool(torch.isfinite(y).all()), "finite chained outputs")
+        err = (y.double() - self.want[i]).abs().max().item() / self.scale[i]
+        self.errors[i].append(err)
+
+
+def gateway_run(built, horizon_periods, seed) -> dict:
+    """One scenario at full width on a virtual clock: the card's report
+    against the port's CPU run of the same bundle, launches against
+    windows, every finished job's output against float64."""
+    name = built.scenario.name
+    tasks, requests, arrivals, cm = gateway_bundle(built, device="cuda", seed=seed)
+    cpu_tasks = [dataclasses.replace(t, weights=tuple(w.cpu() for w in t.weights))
+                 for t in tasks]
+    gen = torch.Generator().manual_seed(seed + 1)
+    inputs = [torch.randn((t.input_rows, t.weights[0].shape[0]), generator=gen)
+              for t in tasks]
+    chains = ChainCheck([chain64(t, x) for t, x in zip(tasks, inputs)])
+    horizon = horizon_periods * max(r.period for r in requests)
+    layers = sum(len(t.weights) for t in tasks)
+    kw = dict(horizon=horizon, cost_model=cm, inputs=inputs)
+    before = matmul_window_call.launches
+    t0 = time.perf_counter()
+    rep, _ = serve_gateway(built, tasks, requests, arrivals, device="cuda",
+                           on_output=chains, **kw)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    launched = matmul_window_call.launches - before
+    t0 = time.perf_counter()
+    rep_cpu, _ = serve_gateway(built, cpu_tasks, requests, arrivals,
+                               device="cpu", **kw)
+    t_cpu = time.perf_counter() - t0
+    sr = rep.server_report
+    check(dataclasses.asdict(rep) == dataclasses.asdict(rep_cpu),
+          f"{name}: the card's gateway report equals the CPU run's")
+    check(launched == sr.windows_executed + layers,
+          f"{name}: {launched} launches vs {sr.windows_executed} windows + "
+          f"{layers} warm-up")
+    check(sr.jobs_completed > 0, f"{name}: jobs completed")
+    for i, t in enumerate(tasks):
+        done = len(sr.response_times[t.name])
+        check(len(chains.errors[i]) == done,
+              f"{name}/{t.name}: {len(chains.errors[i])} outputs checked, "
+              f"{done} jobs completed")
+    err = max(e for errs in chains.errors for e in errs)
+    windows_per_job = [sum(w) for w in cm.layer_windows]
+    print(f"[gateway] {name} ({built.scenario.policy}, "
+          f"{'mode switch' if any(r.criticality == CRITICALITY_HI for r in requests) else 'reject_newest'}"
+          f", horizon {horizon * 1e3:.3f} ms virtual): windows per job "
+          f"{windows_per_job}, {sum(w.numel() for t in tasks for w in t.weights) * 4 / 1e9:.3f} GB fp32 | "
+          f"released {rep.total_released()} shed {rep.total_shed()} completed "
+          f"{sr.jobs_completed} windows {sr.windows_executed} preemptions "
+          f"{sr.preemptions} misses {sum(sr.deadline_misses.values())} mode "
+          f"switches {len(rep.mode_switches)} | launches {launched} | report == "
+          f"cpu report | chained rel err {err:.3g} | host s: card {t_card:.3f} "
+          f"cpu {t_cpu:.3f}")
+    for i, t in enumerate(rep.tenants):
+        errs = chains.errors[i]
+        print(f"[gateway]   {t.name}: admitted {t.admitted} scheduled "
+              f"{t.scheduled} released {t.released} degraded {t.degraded} shed "
+              f"{t.shed} completed {len(errs)} (outputs checked {len(errs)}, "
+              f"max rel err {max(errs, default=0.0):.3g}) misses "
+              f"{sr.deadline_misses[t.name]}")
+    return {"report": rep, "launches": launched, "err": err,
+            "errors": chains.errors, "tasks": tasks, "inputs": inputs,
+            "card_s": t_card, "cpu_s": t_cpu}
+
+
+def gateway_wall(built) -> dict:
+    """rush_hour on the wall clock, its periods x GATEWAY_WALL_SCALE, for
+    GATEWAY_WALL_S under the profiler: printed findings, not checks (a
+    wall-clock miss count depends on the host)."""
+    tasks, requests, arrivals, _ = gateway_bundle(
+        built, device="cuda", period_scale=GATEWAY_WALL_SCALE)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    before = matmul_window_call.launches
+    stepping = [0.0]  # host seconds in server steps that ran a window
+
+    def time_steps(srv):
+        step = srv.step
+
+        def timed():
+            t0 = time.perf_counter()
+            ran = step()
+            if ran:
+                stepping[0] += time.perf_counter() - t0
+            return ran
+
+        srv.step = timed
+
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        rep, _ = serve_gateway(built, tasks, requests, arrivals, device="cuda",
+                               horizon=GATEWAY_WALL_S, clock=WallClock(),
+                               on_server=time_steps)
+        wall = time.perf_counter() - t0
+    launched = matmul_window_call.launches - before
+    sr = rep.server_report
+    check(sr.jobs_completed > 0, "wall-clock gateway run completed jobs")
+    check(launched == sr.windows_executed + sum(len(t.weights) for t in tasks),
+          "wall-clock gateway: one launch per window plus the warm-up")
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    windows = sr.windows_executed
+    busy = (f"card busy {busy_us / 1e3:.3f} ms ({busy_us / 1e4 / wall:.2f}%)"
+            if busy_us > 0 else "card busy time not measured (profiler saw none)")
+    print(f"[gateway] wall {built.scenario.name}, periods x{GATEWAY_WALL_SCALE:g}, "
+          f"{wall * 1e3:.3f} ms wall under the profiler: {busy}, {windows} "
+          f"windows ({windows / wall:.1f} per s); host time in the server "
+          f"steps that ran windows {stepping[0] * 1e3:.3f} ms, "
+          f"{stepping[0] / max(windows, 1) * 1e6:.1f} us per window (launch "
+          f"and the sync after it included)")
+    for t in rep.tenants:
+        p = sr.response_percentiles(t.name)
+        print(f"[gateway] wall   {t.name}: released {t.released} shed {t.shed} "
+              f"completed {len(sr.response_times[t.name])} missed "
+              f"{sr.deadline_misses[t.name]} response p99 {p['p99'] * 1e3:.3f} ms "
+              f"(period {requests[rep.tenants.index(t)].period * 1e3:.3f} ms)")
+    return {"launches": launched, "windows": windows, "wall_s": wall,
+            "busy_us": busy_us, "step_s": stepping[0]}
+
+
+def phase_gateway() -> dict:
+    """The port's DSE picks the gateway scenarios' designs; rush_hour,
+    overload_2x and av_stack, then copilot_decode's StableLM-1.6B decode
+    tenant, are served at full width through the gateway; then a short
+    wall-clock run of rush_hour. Returns the window launches."""
+    from repro_torch.core.perfmodel import exec_model
+
+    built = {}
+    for name in GATEWAY_DESIGNS:
+        # the exec model memoizes layer latencies for the process: clear
+        # it so each printed search time is an uncached search
+        exec_model._latency_cached.cache_clear()
+        built[name], res = search_design(name)
+        accs, splits, mu = design_summary(built[name].design)
+        print(f"[gateway] design {name}: {len(accs)} stages, accelerators "
+              f"(chips, block) {list(accs)}, splits {list(splits)}, max_util "
+              f"{mu!r}; DSE beam search {res.stats.wall_time_s * 1e3:.1f} ms "
+              f"({res.stats.create_acc_calls} candidates)")
+    check(design_summary(built["steady_city"].design) == STEADY_CITY_REFERENCE_DESIGN,
+          "steady_city: the port's DSE picks the reference's design")
+
+    reset_counts()  # the gateway path starts here
+    runs = {}
+    for seed, (name, periods) in enumerate(GATEWAY_RUNS):
+        runs[name] = gateway_run(built[name], periods, seed=200 + seed)
+    check(runs["overload_2x"]["report"].total_shed() > 0, "overload_2x sheds")
+    check(len(runs["av_stack"]["report"].mode_switches) >= 1,
+          "av_stack switches mode")
+
+    torch.cuda.reset_peak_memory_stats()
+    copilot = built["copilot_decode"]
+    lm = next(i for i, spec in enumerate(copilot.scenario.tenants)
+              if spec.workload.startswith("config:stablelm_1_6b"))
+    check(copilot.requests[lm].period == max(r.period for r in copilot.requests),
+          "the decode tenant is copilot_decode's slowest")
+    run = gateway_run(copilot, COPILOT_PERIODS, seed=300)
+    runs["copilot_decode"] = run
+    lm_name = copilot.requests[lm].name
+    done = len(run["report"].server_report.response_times[lm_name])
+    check(done >= 1, f"copilot_decode: {lm_name} finished a job")
+    lm_err = max(run["errors"][lm])
+    tf32 = chain_tf32(run["tasks"][lm], run["inputs"][lm])
+    want = chain64(run["tasks"][lm], run["inputs"][lm])
+    tf32_err = (tf32.double() - want).abs().max().item() / want.abs().max().item()
+    check(lm_err <= CHAIN_REL_TOL < tf32_err,
+          f"{lm_name}: chained rel err {lm_err:.3g} <= {CHAIN_REL_TOL} "
+          f"< the 1xTF32 yardstick's {tf32_err:.3g}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[gateway] copilot_decode {lm_name}: {len(run['tasks'][lm].weights)} "
+          f"layers, {done} jobs finished, chained rel err vs float64 {lm_err:.3g} "
+          f"(bound {CHAIN_REL_TOL}); the same chain through 1xTF32 "
+          f"products {tf32_err:.3g}; card peak memory {peak:.2f} GB")
+    del run["tasks"], run["inputs"], tf32, want
+    torch.cuda.empty_cache()
+
+    wall = gateway_wall(built["rush_hour"])
+    launched = counts()
+    check(launched["preemptible_matmul_window"]
+          == sum(r["launches"] for r in runs.values()) + wall["launches"],
+          "gateway launches add up: every window through the kernel")
+    check(launched["flash_attention"] == launched["rwkv6_scan"]
+          == launched["mamba_scan"] == 0, "the gateway launches no LM kernel")
+    return {"launches": launched["preemptible_matmul_window"],
+            "lm_err": lm_err, "tf32_err": tf32_err, "peak_gb": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -1129,16 +1502,19 @@ def main() -> int:
     rows, head = phase_kernel()
     launches = phase_serve()
     phase_wall()
+    gateway = phase_gateway()
     flash_row, wkv_row, scan_row = phase_lm_kernels()
     lm_runs = {name: phase_lm(name, seed=100 + i, n_layers=n, kv_quant=q)
                for i, (name, n, q) in enumerate(LM_MODELS)}
     pmm = kernel_entry(
         "preemptible_matmul_window", "src/repro_torch/csrc/preemptible_matmul.cu",
-        "src/repro/kernels/preemptible_matmul/kernel.py:36", "mma.sync", launches,
+        "src/repro/kernels/preemptible_matmul/kernel.py:36", "mma.sync",
+        launches + gateway["launches"],
         dict(head, max_abs_err=max(
             r["max_abs_err"] for r in rows if r["dtype"] == "float32")),
     )
-    pmm.update(launch_ms=head["launch_ms"],
+    pmm.update(launches_by_path={"serve": launches, "gateway": gateway["launches"]},
+               launch_ms=head["launch_ms"],
                fp32_fma_bound_ms=head["fp32_fma_bound_ms"],
                shape={k: head[k] for k in ("M", "K", "N", "window", "dtype")})
     flash = kernel_entry(

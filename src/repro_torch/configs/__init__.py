@@ -9,8 +9,14 @@ import importlib
 
 from repro_torch.configs.base import ArchConfig, smoke_config
 
-#: the configurations this package serves (module names)
-CONFIG_NAMES = ("mistral_nemo_12b", "rwkv6_7b", "jamba_v0_1_52b")
+#: every configuration of the JAX package (module names); the two stub
+#: frontends (internvl2_76b, musicgen_medium) load but do not build
+#: (`models.lm.check_supported`)
+CONFIG_NAMES = (
+    "mistral_nemo_12b", "rwkv6_7b", "jamba_v0_1_52b", "dbrx_132b",
+    "granite_moe_3b_a800m", "minitron_4b", "qwen1_5_32b", "stablelm_1_6b",
+    "internvl2_76b", "musicgen_medium",
+)
 
 
 def load_config(name: str) -> ArchConfig:

@@ -4,7 +4,8 @@ Each function reads the source object only through plain fields and
 ``numpy.asarray`` of its arrays, so it works on anything with those
 fields and never imports the JAX package. It builds this package's
 own objects: workloads and task sets for the exec model, design points
-for the stage split and cost model, serve tasks and server inputs as
+and segment tables for the stage split, the analysis and the cost
+model, tenant contracts for admission, serve tasks and server inputs as
 tensors on a chosen device, and LM parameters and decode caches.
 """
 from __future__ import annotations
@@ -17,8 +18,15 @@ import torch
 from repro_torch.core.dse.space import DesignPoint
 from repro_torch.core.perfmodel.exec_model import AccDesign
 from repro_torch.core.perfmodel.hardware import TPUChip
-from repro_torch.core.rt.task import LayerDesc, Task, TaskSet, Workload
+from repro_torch.core.rt.task import (
+    LayerDesc,
+    SegmentTable,
+    Task,
+    TaskSet,
+    Workload,
+)
 from repro_torch.pipeline.serve import ServeTask
+from repro_torch.traffic.admission import TaskRequest
 
 _LAYER_FIELDS = tuple(f.name for f in dataclasses.fields(LayerDesc))
 _CHIP_FIELDS = tuple(f.name for f in dataclasses.fields(TPUChip))
@@ -65,6 +73,32 @@ def design_from(src) -> DesignPoint:
         accs=accs,
         splits=tuple(tuple(int(n) for n in row) for row in src.splits),
         max_util=float(src.max_util),
+    )
+
+
+def table_from(src) -> SegmentTable:
+    """A `SegmentTable` with the same segment lengths, stage overheads
+    and layer splits."""
+    return SegmentTable(
+        base=[[float(b) for b in row] for row in src.base],
+        overhead=[float(o) for o in src.overhead],
+        layer_split=[[int(n) for n in row] for row in src.layer_split],
+    )
+
+
+def requests_from(srcs) -> tuple[TaskRequest, ...]:
+    """`TaskRequest`s (tenant contracts) with the same fields."""
+    return tuple(
+        TaskRequest(
+            name=r.name,
+            base=tuple(float(b) for b in r.base),
+            period=r.period,
+            deadline=r.deadline,
+            value=r.value,
+            best_effort=r.best_effort,
+            criticality=r.criticality,
+        )
+        for r in srcs
     )
 
 

@@ -5,9 +5,9 @@ accelerators and maps each task's layers onto them *consecutively* (the
 pipelined-topology constraint): ``splits[k][i]`` = number of consecutive
 layers of task i on accelerator k, with ``sum_k splits[k][i] == L_i``.
 
-Evaluation produces the `SegmentTable` the serving runtime's cost model
-is checked against. The search that picks a design is not part of this
-package yet; a design comes from the caller.
+Evaluation produces the `SegmentTable` consumed by the RT core and the
+DES, so schedulability tests / response bounds / simulation all see the
+same WCETs.
 """
 from __future__ import annotations
 
@@ -69,3 +69,32 @@ def evaluate_design(
                 base[i][k] = segment_latency(seg, accs[k])
     overhead = [sum(preemption_overheads(a)) for a in accs]
     return SegmentTable(base=base, overhead=overhead, layer_split=layer_split)
+
+
+def design_from_splits(
+    accs: tuple[AccDesign, ...],
+    splits: tuple[tuple[int, ...], ...],
+    workloads: list[Workload],
+    taskset: TaskSet,
+) -> DesignPoint:
+    from repro_torch.core.rt.schedulability import max_utilization
+
+    table = evaluate_design(accs, splits, workloads, taskset)
+    return DesignPoint(
+        accs=accs,
+        splits=splits,
+        max_util=max_utilization(table, taskset, preemptive=False),
+    )
+
+
+def fixed_design(
+    workloads: list[Workload], taskset: TaskSet, platform
+) -> DesignPoint:
+    """Paper Fig. 1 baseline: one accelerator with all resources."""
+    from repro_torch.core.dse.create_acc import LatencyCache, create_acc
+
+    cache = LatencyCache(workloads)
+    spans = tuple((0, w.num_layers) for w in workloads)
+    acc, _util, _lat = create_acc(spans, platform.total_chips, taskset, cache)
+    splits = (tuple(w.num_layers for w in workloads),)
+    return design_from_splits((acc,), splits, workloads, taskset)

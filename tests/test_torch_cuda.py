@@ -26,8 +26,15 @@ decode step: the card's bf16-operand, fp32-result products against the
 CPU's fp32 products of the same bf16-rounded operands, which differ only
 in summation order (1e-5 of the max in fp32; relative L2 3e-2 in bf16,
 where the output's own rounding may flip), with equal codes and scales.
+The gateway on the card runs through ``chip_smoke.py``'s gateway
+helpers at a reduced size, with that phase's checks: report equal to
+the CPU run's, one launch per window, every completed job's chained
+output within ``CHAIN_REL_TOL`` of float64.
 """
+import dataclasses
+import importlib.util
 import math
+import os
 
 import pytest
 import torch
@@ -472,3 +479,69 @@ def test_attention_decode_q8_on_card_matches_cpu(card, dtype):
         assert got.dtype == torch.int8
         assert torch.equal(got[:, :, :S], cache[name][:, :, :S])
         assert int((got.int() - cache[name].int()).abs().max()) <= 1
+
+
+# ---------------------------------------------------------------------------
+# the traffic gateway on the card, through chip_smoke.py's own gateway
+# helpers (the ones its gateway phase drives at full size)
+# ---------------------------------------------------------------------------
+def _load_smoke():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _copilot_with_stablelm_blocks(smoke, n_blocks):
+    """copilot_decode with its StableLM-1.6B decode tenant cut to
+    ``n_blocks`` of its 24 blocks (5 layers each, plus the head) at full
+    width, on the design the port's DSE picks for that cut."""
+    from repro_torch.configs import load_config
+    from repro_torch.core.rt.task import Task, TaskSet
+    from repro_torch.models.extract import arch_workload
+
+    scenario = smoke.get_scenario("copilot_decode")
+    platform = smoke.paper_platform()
+    workloads, taskset = smoke.resolve_problem(scenario, platform)
+    cfg = dataclasses.replace(load_config("stablelm_1_6b"), n_layers=n_blocks)
+    i = next(j for j, s in enumerate(scenario.tenants)
+             if s.workload.startswith("config:stablelm_1_6b"))
+    spec = scenario.tenants[i]
+    workloads[i] = arch_workload(cfg, batch=spec.batch, seq=spec.seq, mode="decode")
+    tasks = list(taskset.tasks)
+    tasks[i] = Task(workload=workloads[i], period=tasks[i].period, name=tasks[i].name)
+    taskset = TaskSet(tasks=tuple(tasks))
+    res = smoke.explore(workloads, taskset, platform, **smoke.build_search())
+    return smoke.materialize(scenario, workloads, taskset, res.best), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rush_hour", "copilot_decode"])
+def test_gateway_on_card_equals_cpu_run_with_every_window_a_launch(card, name):
+    """The gateway phase's virtual-clock run at a reduced size: rush_hour
+    at full width for 20 periods; copilot_decode with StableLM-1.6B cut
+    to 2 blocks (11 layers, full width) for 3 decode periods. Inside
+    `gateway_run`: the card's report equals the port's CPU run of the
+    same bundle, the kernel launches equal the windows plus the
+    warm-up, and every tenant has one output checked against float64
+    per completed job."""
+    smoke = _load_smoke()
+    if name == "rush_hour":
+        built, _ = smoke.search_design(name)
+        periods, lm = 20.0, None
+    else:
+        built, lm = _copilot_with_stablelm_blocks(smoke, 2)
+        periods = 3.0
+    run = smoke.gateway_run(built, periods, seed=7)
+    sr = run["report"].server_report
+    warm = sum(len(t.weights) for t in run["tasks"])
+    assert run["launches"] == sr.windows_executed + warm
+    assert [len(e) for e in run["errors"]] == [
+        len(sr.response_times[t.name]) for t in run["tasks"]
+    ]
+    assert all(len(e) > 0 for e in run["errors"])
+    assert run["err"] <= smoke.CHAIN_REL_TOL
+    if lm is not None:
+        assert len(run["tasks"][lm].weights) == 11

@@ -1,7 +1,9 @@
 """The port's LM serving path against the JAX package's, on the CPU.
 
-The smoke-size models (`smoke_config` of Mistral-NeMo-12B and RWKV-6-7B:
-2 layers, narrow widths, vocab 256; of Jamba-v0.1-52B: 16 layers, the
+The smoke-size models (`smoke_config` of Mistral-NeMo-12B, RWKV-6-7B,
+DBRX-132B, Granite-MoE-3B (tied embeddings), Minitron-4B (gelu),
+Qwen1.5-32B (q/k/v biases) and StableLM-1.6B: 2 layers, narrow widths,
+vocab 256, MoE at 8 experts top-2; of Jamba-v0.1-52B: 16 layers, the
 7:1 mamba/attention interleave and the MoE cadence kept, d_model 256,
 d_inner 512, 8 experts top-2, d_state 8) are built once per module by
 the JAX package from a fixed key and carried across with
@@ -29,6 +31,9 @@ Tolerances, with their reasons:
   layers to ~4-5% per token, and top-2 routing is discontinuous, so a
   one-ulp difference upstream moves a token to another expert and its
   logits 20-40% (observed). In float32 the whole stack is held at 1e-4.
+  DBRX's and Granite-MoE's bf16 stacks are held the same way: their
+  routing flips too, and the reference's own bf16 DBRX stack is 4.9%
+  (relative L2) from its fp32 stack on this module's tokens.
 - Jamba's conv cache is rounded to bf16 from fp32 values that differ by
   ~1e-7, so even in float32 a rounding can flip there: one bf16 ulp
   (2^-7 of the max). The mamba states that decode builds from those
@@ -51,6 +56,7 @@ import pytest
 import torch
 
 from repro.configs.base import smoke_config as ref_smoke_config
+from repro.models.extract import arch_workload as ref_arch_workload
 from repro.models import layers as RL
 from repro.models import lm as rlm
 from repro.models import rwkv as RR
@@ -62,6 +68,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as M
+from repro_torch.models.extract import arch_workload
 from repro_torch.models.module import dense_init, param_bytes, param_count
 
 torch.set_num_threads(1)
@@ -109,9 +116,18 @@ def _f32(tree):
     )
 
 
+#: the configurations with a text model; the two stub modality
+#: frontends (InternVL2-76B, MusicGen-medium) load but build no model
+TEXT_CONFIGS = tuple(n for n in CONFIG_NAMES if load_config(n).frontend == "none")
+STUB_CONFIGS = tuple(n for n in CONFIG_NAMES if n not in TEXT_CONFIGS)
+
+#: configurations with a top-k routed MoE: their whole bf16 stack is held
+#: sublayer by sublayer (module docstring)
+MOE_CONFIGS = tuple(n for n in TEXT_CONFIGS if load_config(n).n_experts)
+
 CASES = [
-    (n, d) for n in CONFIG_NAMES for d in ("float32", "bfloat16")
-    if (n, d) != ("jamba_v0_1_52b", "bfloat16")  # sublayer by sublayer, below
+    (n, d) for n in TEXT_CONFIGS for d in ("float32", "bfloat16")
+    if not (n in MOE_CONFIGS and d == "bfloat16")  # sublayer by sublayer, below
 ]
 
 
@@ -260,15 +276,19 @@ def _ref_layer(rp, rcfg, i):
     return jax.tree_util.tree_map(lambda a: a[rep], rp["blocks"][j])
 
 
-@pytest.fixture(scope="module")
-def jamba_bf16():
-    rcfg = ref_smoke_config(_ref_config("jamba_v0_1_52b"))
-    cfg = smoke_config(load_config("jamba_v0_1_52b"))
+def _bf16_model(name):
+    rcfg = ref_smoke_config(_ref_config(name))
+    cfg = smoke_config(load_config(name))
     rp = rlm.init_params(jax.random.PRNGKey(0), rcfg)
     tp = convert.lm_params_from(jax.tree_util.tree_map(np.asarray, rp), cfg,
                                 device="cpu")
     toks = np.random.default_rng(7).integers(0, cfg.vocab, (B, S + 1))
     return rcfg, cfg, rp, tp, toks
+
+
+@pytest.fixture(scope="module")
+def jamba_bf16():
+    return _bf16_model("jamba_v0_1_52b")
 
 
 def _t(a):
@@ -279,7 +299,24 @@ def test_jamba_bf16_sublayer_by_sublayer_matches_reference(jamba_bf16):
     """Every mixer and ffn of the bf16 Jamba smoke stack, in prefill and in
     one decode step, on the reference's own input to it: outputs and
     caches at relative L2 3e-2."""
-    rcfg, cfg, rp, tp, toks = jamba_bf16
+    seen = _bf16_sublayer_by_sublayer(*jamba_bf16)
+    assert seen == {("mamba", "dense"), ("mamba", "moe"), ("attn", "dense")}
+
+
+@pytest.mark.parametrize("name", [n for n in MOE_CONFIGS if n != "jamba_v0_1_52b"])
+def test_moe_bf16_sublayer_by_sublayer_matches_reference(name):
+    """The bf16 smoke stacks of DBRX-132B and Granite-MoE-3B, held as
+    Jamba's is: their top-k routing flips on one-ulp differences, and
+    the reference's own bf16 stack is as far from its fp32 stack as the
+    port's (DBRX: 4.9% and 3.4% relative L2 on this module's tokens)."""
+    seen = _bf16_sublayer_by_sublayer(*_bf16_model(name))
+    assert seen == {("attn", "moe")}
+
+
+def _bf16_sublayer_by_sublayer(rcfg, cfg, rp, tp, toks):
+    """Each mixer and ffn on the reference's own input to it, in prefill
+    and one decode step: outputs and caches at relative L2 3e-2. Returns
+    the (mixer, ffn) kinds met."""
     x = rp["embed"][jnp.asarray(toks[:, :S])]
     x1 = rp["embed"][jnp.asarray(toks[:, S])][:, None, :]
     rpos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32)[None], (B, S))
@@ -315,7 +352,7 @@ def test_jamba_bf16_sublayer_by_sublayer_matches_reference(jamba_bf16):
             assert _rel_l2(g, w) <= BF16_REL_L2, (i, ffn)
         x, x1 = want, want1
         seen.add((mixer, ffn))
-    assert seen == {("mamba", "dense"), ("mamba", "moe"), ("attn", "dense")}
+    return seen
 
 
 @pytest.mark.parametrize("seq", [40, 1088])
@@ -383,7 +420,7 @@ def test_tmix_impl_alone_matches_reference(dtype):
     assert torch.equal(got_c["tmix_last"], convert._lm_tensor(np.asarray(want_c["tmix_last"]), "cpu"))
 
 
-@pytest.mark.parametrize("name", CONFIG_NAMES)
+@pytest.mark.parametrize("name", TEXT_CONFIGS)
 def test_decode_after_prefill_equals_longer_prefill(name):
     """Teacher forcing inside the port (what chip_smoke.py checks on the
     card): decode logits at step S equal the last logits of a prefill
@@ -409,10 +446,40 @@ def test_configs_are_copies(name):
     assert cfg.param_counts() == ref.param_counts()
     assert dataclasses.asdict(smoke_config(cfg)) == dataclasses.asdict(ref_smoke_config(ref))
     with pytest.raises(ValueError, match="unknown config"):
-        load_config("dbrx_132b")
+        load_config("no_such_config")
 
 
+@pytest.mark.parametrize("name", STUB_CONFIGS)
+def test_stub_configs_load_and_do_not_build(name):
+    """The stub modality frontends load (the DSE and extract read them)
+    and every model entry point refuses them."""
+    cfg = load_config(name)
+    assert cfg.frontend in ("vision_stub", "audio_stub")
+    with pytest.raises(NotImplementedError, match="frontend"):
+        lm.init_params(torch.Generator(), smoke_config(cfg), device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["prefill", "decode", "train"])
 @pytest.mark.parametrize("name", CONFIG_NAMES)
+def test_arch_workload_matches_reference(name, mode):
+    """The PHAROS layer chain of every configuration, at the batch and
+    sequence copilot_decode serves StableLM-1.6B with (8 x 2048), with
+    and without the LM head: equal layers."""
+    for head in (True, False):
+        kw = dict(batch=8, seq=2048, mode=mode, include_head=head)
+        got = arch_workload(load_config(name), **kw)
+        want = ref_arch_workload(_ref_config(name), **kw)
+        assert got == convert.workload_from(want)
+    if name == "stablelm_1_6b" and mode == "decode":
+        assert len(got.layers) + 1 == 121  # the served chain: 24 x 5 + head
+
+
+def test_arch_workload_refuses_an_unknown_mode():
+    with pytest.raises(ValueError, match="unknown mode"):
+        arch_workload(load_config("stablelm_1_6b"), batch=1, seq=16, mode="serve")
+
+
+@pytest.mark.parametrize("name", TEXT_CONFIGS)
 def test_init_params_and_cache_have_the_reference_layout(name):
     """Per layer, the port's parameters and cache have the shapes and
     dtypes of the reference's stacked pytrees with the repeats axis

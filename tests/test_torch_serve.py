@@ -166,20 +166,21 @@ def test_design_to_segments_weights_are_seeded_and_device_independent(built):
 
 
 def test_chip_smoke_constants_match_the_reference_design(built):
-    """chip_smoke.py holds steady_city's design (the DSE is not ported
-    yet); it must be the design the reference's build picks."""
+    """chip_smoke.py serves steady_city on the design the port's own DSE
+    picks; it must be the design the reference's build picks, and the
+    reference design its gateway phase checks against must be that too."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py")
     )
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     b = built["steady_city"]
-    assert smoke.STEADY_CITY_SPLITS == b.design.splits
-    assert smoke.STEADY_CITY_ACCS == tuple(
-        (a.chips, a.block) for a in b.design.accs
-    )
-    assert smoke.STEADY_CITY_MAX_UTIL == b.design.max_util
+    accs, splits, max_util = smoke.STEADY_CITY_REFERENCE_DESIGN
+    assert splits == b.design.splits
+    assert accs == tuple((a.chips, a.block) for a in b.design.accs)
+    assert max_util == b.design.max_util
     design, workloads, taskset, tasks = smoke.steady_city(device="meta")
+    assert smoke.design_summary(design) == smoke.STEADY_CITY_REFERENCE_DESIGN
     assert design == convert.design_from(b.design)
     assert taskset == convert.taskset_from(b.taskset)
     assert workloads == [convert.workload_from(w) for w in b.workloads]
