@@ -49,7 +49,24 @@ Phases, each printing what it finds; any failure exits non-zero:
              products. Last, a short wall-clock run of rush_hour under
              the profiler (busy share, windows per second, host time per
              window, per-tenant releases, sheds, misses and p99).
-6. lmkern  — the flash-attention, WKV-6 and selective-scan kernels
+6. sharded — the port's `provision` runs its DSE for sharded_city (4
+             periodic tenants: PointNet, MLP-Mixer, ResMLP, DeiT-T) and
+             places them over 2 shards, each shard's admission proving its
+             contract; the provisioned `ShardedGateway` serves 40 periods
+             of the slowest tenant on one shared virtual clock. Then the
+             same tenants on an elastic fleet (every shard built over all
+             four) with one live migration, which must commit to the
+             other shard; then the `Autoscaler` over two copies of
+             multi_tenant_rush (8 tenants, 1 to 4 shards) through a
+             quarter of them, all, and one per peak shard: the fleet must
+             grow and then shrink. Every shard's server is a
+             `PharosServer` on the card at full width, driven by the exec
+             cost model; each run's report, trace (every event kind) and
+             trace metrics must equal the port's CPU run of the same
+             bundle, its window launches the windows plus each server's
+             warm-up, and every completed job's chained output of every
+             shard is held against float64.
+7. lmkern  — the flash-attention, WKV-6 and selective-scan kernels
              against their plain versions at the LM path's shapes
              (Mistral-NeMo attention at S = 2048, a ragged S = 1000 and
              head width 64; RWKV-6's WKV at S = 2048 and a ragged S;
@@ -60,7 +77,7 @@ Phases, each printing what it finds; any failure exits non-zero:
              port never calls), bound and error; for WKV-6 and the scan
              also the bytes each must move over its card time, and its
              share of the bound.
-7. lm      — Mistral-NeMo-12B and RWKV-6-7B at full width and depth, then
+8. lm      — Mistral-NeMo-12B and RWKV-6-7B at full width and depth, then
              Jamba-v0.1-52B at full width and 16 of its 32 layers (all 32
              hold 102.9 GB in bf16, more than the card's 80 GB), one
              after the other, with random bf16 weights from a CUDA
@@ -74,13 +91,14 @@ Phases, each printing what it finds; any failure exits non-zero:
              against the port's own CPU run of the same weights and
              tokens, and the times under the PyTorch profiler with the
              card's busy share.
-8. report  — a ``kernels`` JSON line, the card's name and power limit,
+9. report  — a ``kernels`` JSON line, the card's name and power limit,
              and the result line.
 
 Exits with code 2 and prints no result when no CUDA card is visible.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import json
@@ -101,7 +119,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch import _build  # noqa: E402
 from repro_torch.configs import load_config  # noqa: E402
 from repro_torch.conformance import CostModel  # noqa: E402
-from repro_torch.core.dse import explore  # noqa: E402
+from repro_torch.core.dse import DSEConfig, explore, provision  # noqa: E402
 from repro_torch.core.perfmodel.hardware import paper_platform  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_call,
@@ -132,16 +150,23 @@ from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa:
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.module import param_bytes, param_count  # noqa: E402
+from repro_torch.obs import EVENT_KINDS, MetricsRegistry, TraceRecorder, trace_diff  # noqa: E402
 from repro_torch.pipeline import PharosServer, design_to_segments  # noqa: E402
 from repro_torch.pipeline.serve import window_plan  # noqa: E402
 from repro_torch.traffic import (  # noqa: E402
     CRITICALITY_HI,
     AdmissionController,
+    Autoscaler,
+    MigrationController,
+    MigrationPlan,
     ModeController,
+    RampPhase,
+    ShardedGateway,
     TrafficGateway,
     build,
     get_scenario,
     materialize,
+    replicate,
     resolve_problem,
 )
 from repro_torch.traffic.clock import VirtualClock, WallClock  # noqa: E402
@@ -897,6 +922,305 @@ def phase_gateway() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The sharded gateway: the port's provision bridge over its DSE, K
+# replicas of one pipeline on a shared virtual clock, a live tenant
+# migration and the autoscaler, every shard's server on the card
+# ---------------------------------------------------------------------------
+#: provisioned and served over 2 shards (4 periodic tenants: PointNet,
+#: MLP-Mixer, ResMLP, DeiT-T)
+SHARDED_SCENARIO, SHARDED_SHARDS, SHARDED_PLACEMENT = "sharded_city", 2, "least_loaded"
+#: horizon of the provisioned and the migration runs, in periods of the
+#: slowest tenant's contract; the migration starts at this share of it
+SHARDED_PERIODS, MIGRATE_AT = 40.0, 0.3
+#: the autoscaler's population (2 copies of each tenant), fleet bounds
+#: and plateau length in periods of the slowest tenant
+AUTOSCALE_SCENARIO, AUTOSCALE_COPIES = "multi_tenant_rush", 2
+AUTOSCALE_SHARDS, AUTOSCALE_PERIODS = (1, 4), 6.0
+#: the scout ramp's width: the autoscaler plans from the contracts alone
+#: (`Autoscaler._plan_epoch`), so where the peak fleet places each tenant
+#: does not depend on the width or the device it serves on
+SCOUT_MAX_DIM = 128
+
+
+@contextlib.contextmanager
+def built_fleets(on_fleet):
+    """Call ``on_fleet(sharded)`` on every `ShardedGateway` constructed
+    inside the block, in construction order, before it runs: the
+    autoscaler builds one fleet per epoch and keeps none, so this is
+    where its shards' servers can be reached."""
+    init = ShardedGateway.__init__
+
+    def hooked(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        on_fleet(self)
+
+    ShardedGateway.__init__ = hooked
+    try:
+        yield
+    finally:
+        ShardedGateway.__init__ = init
+
+
+class FleetCheck:
+    """``on_fleet`` for `built_fleets`: every shard's server gets a
+    `ChainCheck` of its own tasks and inputs (float64 chains where its
+    weights lie) on its output hook. ``servers`` lists ``(fleet, shard,
+    server, chains)`` in construction order."""
+
+    def __init__(self, check_outputs: bool = True):
+        self.check_outputs = check_outputs
+        self.fleets = []
+        self.servers = []
+
+    def __call__(self, sharded):
+        f = len(self.fleets)
+        self.fleets.append(sharded)
+        for k, gw in enumerate(sharded.gateways):
+            if gw is None:
+                continue
+            srv, chains = gw.server, None
+            if self.check_outputs:
+                chains = ChainCheck([chain64(t, x) for t, x in zip(srv.tasks, srv.inputs)])
+                capture_outputs(srv, chains)
+            self.servers.append((f, k, srv, chains))
+
+    def tally(self, reports) -> dict:
+        """Windows, warm-up launches (one per layer of each server),
+        preemptions and completed jobs over every shard of every fleet;
+        ``reports[f]`` is fleet ``f``'s `ShardedReport`. With outputs
+        checked, also the worst chained error, after checking that each
+        server's outputs checked equal its completed jobs, task by
+        task."""
+        out = {"windows": 0, "warmup": 0, "preemptions": 0, "completed": 0,
+               "outputs": 0, "err": 0.0}
+        for f, k, srv, chains in self.servers:
+            sr = reports[f].reports[k].server_report
+            out["windows"] += sr.windows_executed
+            out["warmup"] += sum(len(t.weights) for t in srv.tasks)
+            out["preemptions"] += sr.preemptions
+            out["completed"] += sr.jobs_completed
+            if chains is None:
+                continue
+            for i, t in enumerate(srv.tasks):
+                done = len(sr.response_times.get(t.name, []))
+                check(len(chains.errors[i]) == done,
+                      f"fleet {f} shard {k} {t.name}: {len(chains.errors[i])} "
+                      f"outputs checked, {done} jobs completed")
+                out["outputs"] += done
+            out["err"] = max([out["err"]] + [e for errs in chains.errors for e in errs])
+        return out
+
+
+def fleet_run(make, device, check_outputs=True) -> dict:
+    """``make(device, trace)`` builds and runs one sharded workload on
+    ``device`` and returns ``(report, reports, extra)``: its report, each
+    fleet's `ShardedReport` in construction order, and a dict of other
+    results to compare. Returns those with the port's trace, the
+    `FleetCheck`, the window-kernel launches and the host seconds."""
+    trace, fc = TraceRecorder(), FleetCheck(check_outputs)
+    before = matmul_window_call.launches
+    t0 = time.perf_counter()
+    with built_fleets(fc):
+        report, reports, extra = make(device, trace)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(len(reports) == len(fc.fleets), "one report per fleet built")
+    return {"report": report, "reports": reports, "extra": extra, "trace": trace,
+            "fleets": fc,
+            "launches": matmul_window_call.launches - before, "seconds": secs}
+
+
+def provision_sharded():
+    """The port's `provision` of sharded_city over 2 shards: its DSE runs
+    the search `traffic.scenarios.build` runs, and every shard's
+    admission controller must admit its contract."""
+    plan = provision(SHARDED_SCENARIO, cfg=DSEConfig(**build_search()),
+                     shards=SHARDED_SHARDS, placement=SHARDED_PLACEMENT)
+    ctls = plan.admission_controllers()  # raises where a contract does not fit
+    check(all(c.verify() for c in ctls) and
+          sum(len(c.names()) for c in ctls) == len(plan.built.requests),
+          f"{SHARDED_SCENARIO}: every shard admits its contract")
+    return plan
+
+
+def horizon_of(built, periods) -> float:
+    return periods * max(r.period for r in built.requests)
+
+
+def provisioned_run(plan, *, max_dim=None, periods=SHARDED_PERIODS):
+    """``make`` for `fleet_run`: the provisioned fleet on the shared clock."""
+    def make(device, trace):
+        gw = plan.sharded_gateway(device=device, max_dim=max_dim, trace=trace)
+        rep = gw.run(horizon_of(plan.built, periods))
+        check(gw.verify(), "every shard's Eq. 3 verdict holds on re-analysis")
+        return rep, [rep], {}
+    return make
+
+
+def migration_run(built, *, max_dim=None, periods=SHARDED_PERIODS):
+    """``make`` for `fleet_run`: the elastic fleet (each shard built over
+    every tenant) migrating the first tenant at MIGRATE_AT of the
+    horizon; ``extra`` holds the controller's records and final
+    assignment."""
+    def make(device, trace):
+        horizon = horizon_of(built, periods)
+        gw = ShardedGateway.from_built(
+            built, shards=SHARDED_SHARDS, placement=SHARDED_PLACEMENT, elastic=True,
+            device=device, max_dim=max_dim, trace=trace)
+        mc = MigrationController(
+            [MigrationPlan(tenant=built.requests[0].name, at=MIGRATE_AT * horizon)],
+            trace=trace)
+        rep = gw.run(horizon, controller=mc)
+        return rep, [rep], {"records": mc.records, "final": mc.final_assignment(),
+                            "in_progress": mc.in_progress()}
+    return make
+
+
+def autoscale_phases(population, *, periods=AUTOSCALE_PERIODS):
+    """The ramp of ``tests/test_migration.py``'s grow-and-shrink case: a
+    quarter of the tenants, then all, then one tenant per shard of the
+    peak fleet, which a scout run of the first two plateaus places (on
+    the CPU at SCOUT_MAX_DIM)."""
+    dur = horizon_of(population, periods)
+    n = len(population.requests)
+    few, full = tuple(range(max(1, n // 4))), tuple(range(n))
+    lo, hi = AUTOSCALE_SHARDS
+    scout = Autoscaler(population, min_shards=lo, max_shards=hi, device="cpu",
+                       max_dim=SCOUT_MAX_DIM).run_ramp(
+        [RampPhase(duration=dur, active=few), RampPhase(duration=dur, active=full)])
+    peak = scout.epochs[1].assignment
+    down = tuple(sorted(min(i for i, s in peak.items() if s == k)
+                        for k in set(peak.values())))
+    return [RampPhase(duration=dur, active=few), RampPhase(duration=dur, active=full),
+            RampPhase(duration=dur, active=down)]
+
+
+def autoscale_run(population, phases, *, max_dim=None):
+    """``make`` for `fleet_run`: the autoscaler's ramp, one fleet per
+    epoch."""
+    def make(device, trace):
+        lo, hi = AUTOSCALE_SHARDS
+        rep = Autoscaler(population, min_shards=lo, max_shards=hi, device=device,
+                         max_dim=max_dim, trace=trace).run_ramp(phases)
+        return rep, [e.report for e in rep.epochs], {}
+    return make
+
+
+def sharded_case(label, make, *, device="cuda") -> dict:
+    """One sharded workload on ``device`` against the port's CPU run of
+    the same bundle: equal reports, identical traces over the whole
+    vocabulary and equal metrics from them; window-kernel launches
+    equal to the windows plus each server's warm-up; every completed
+    job's chained output within CHAIN_REL_TOL of float64, one output
+    checked per completed job of every tenant."""
+    card = fleet_run(make, device)
+    cpu = fleet_run(make, "cpu", check_outputs=False)
+    check(dataclasses.asdict(card["report"]) == dataclasses.asdict(cpu["report"])
+          and card["extra"] == cpu["extra"],
+          f"{label}: the card's report equals the CPU run's")
+    tr, cpu_tr = card["trace"], cpu["trace"]
+    d = trace_diff(cpu_tr, tr, kinds=EVENT_KINDS, names=("cpu", device))
+    check(d.identical and d.compared == len(tr.events) == len(cpu_tr.events) > 0,
+          f"{label}: the card's trace equals the CPU run's ({d.summary()})")
+    check(MetricsRegistry.from_trace(tr).snapshot()
+          == MetricsRegistry.from_trace(cpu_tr).snapshot(),
+          f"{label}: the card's trace metrics equal the CPU run's")
+    tally = card["fleets"].tally(card["reports"])
+    check(card["launches"] == tally["windows"] + tally["warmup"],
+          f"{label}: {card['launches']} launches vs {tally['windows']} windows + "
+          f"{tally['warmup']} warm-up")
+    check(tally["completed"] > 0 and tally["outputs"] == tally["completed"],
+          f"{label}: {tally['outputs']} outputs checked, {tally['completed']} "
+          "jobs completed")
+    check(tally["err"] <= CHAIN_REL_TOL,
+          f"{label}: chained rel err {tally['err']:.3g} > {CHAIN_REL_TOL}")
+    misses = {}
+    for rep in card["reports"]:
+        for gr in rep.reports:
+            if gr is not None:
+                for name, n in gr.server_report.deadline_misses.items():
+                    misses[name] = misses.get(name, 0) + n
+    print(f"[sharded] {label}: host s card {card['seconds']:.3f} cpu "
+          f"{cpu['seconds']:.3f} | launches {card['launches']} windows "
+          f"{tally['windows']} warm-up {tally['warmup']} preemptions "
+          f"{tally['preemptions']} | report == cpu report, trace == cpu trace "
+          f"({d.compared} events), metrics == cpu metrics | outputs checked "
+          f"{tally['outputs']} of {tally['completed']} completed, chained rel err "
+          f"{tally['err']:.3g}")
+    print(f"[sharded]   events by kind {dict(sorted(tr.counts().items()))}")
+    print(f"[sharded]   misses by tenant {dict(sorted(misses.items()))}")
+    return {**card, "cpu_seconds": cpu["seconds"], "tally": tally, "misses": misses}
+
+
+def phase_sharded() -> int:
+    """sharded_city provisioned by the port's DSE over 2 shards; the same
+    tenants on an elastic fleet with one live migration; the autoscaler
+    over two copies of multi_tenant_rush growing and shrinking the
+    fleet. Each at full width on the card against the port's CPU run.
+    Returns the window launches."""
+    reset_counts()  # the sharded path starts here
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9  # by earlier phases
+    t0 = time.perf_counter()
+    plan = provision_sharded()
+    t_plan = time.perf_counter() - t0
+    built = plan.built
+    gb = sum(w.numel() for t in built.serve_bundle(period_scale=1.0, device="meta")[0]
+             for w in t.weights) * 4 / 1e9
+    print(f"[sharded] {SHARDED_SCENARIO}: provision over {plan.n_shards} shards "
+          f"({plan.placement}) in {t_plan:.3f} s, design max_util "
+          f"{plan.design.max_util!r}, assignment {plan.plan.assignment}, shard "
+          f"utilizations {plan.shard_utilizations()}; {len(built.requests)} tenants, "
+          f"{gb:.3f} GB fp32 at full width")
+    runs = {"provisioned": sharded_case("provisioned", provisioned_run(plan))}
+
+    run = sharded_case("migration", migration_run(built))
+    extra, kinds = run["extra"], run["trace"].counts()
+    (rec,) = extra["records"]
+    check(rec.committed and rec.target not in (None, rec.donor),
+          f"migration: {rec.tenant} committed to another shard ({rec.reason})")
+    check(kinds.get("migrate_start") == kinds.get("migrate_commit") == 1,
+          "migration: one migrate_start and one migrate_commit event")
+    print(f"[sharded]   migration of {rec.tenant}: shard {rec.donor} -> "
+          f"{rec.target}, started {rec.started_at * 1e3:.3f} ms, committed "
+          f"{rec.committed_at * 1e3:.3f} ms, {rec.held} releases held; final "
+          f"assignment {extra['final']}")
+    runs["migration"] = run
+
+    population = replicate(search_design(AUTOSCALE_SCENARIO)[0], AUTOSCALE_COPIES)
+    phases = autoscale_phases(population)
+    run = sharded_case("autoscale", autoscale_run(population, phases))
+    rep, kinds = run["report"], run["trace"].counts()
+    shards = rep.shard_counts()
+    check(shards[1] > shards[0] and shards[2] < shards[1],
+          f"autoscale: the fleet grows at the peak and shrinks after ({shards})")
+    check(rep.epochs[1].grew > 0 and rep.epochs[2].shrank > 0 and rep.epochs[2].rehomed,
+          "autoscale: grow and shrink epochs, re-homing on the shrink")
+    check(kinds.get("migrate_start", 0) >= len(rep.epochs[2].rehomed) > 0
+          and kinds.get("migrate_commit") == kinds.get("migrate_start"),
+          "autoscale: a migrate_start and migrate_commit per re-homed tenant")
+    print(f"[sharded]   autoscale {len(population.requests)} tenants "
+          f"({AUTOSCALE_COPIES} x {AUTOSCALE_SCENARIO}): active per epoch "
+          f"{[len(p.active) for p in phases]}, shards per epoch {shards}, grew "
+          f"{[e.grew for e in rep.epochs]}, shrank {[e.shrank for e in rep.epochs]}, "
+          f"re-homed {list(rep.epochs[2].rehomed)}, admit rate {rep.admit_rate()!r}")
+    runs["autoscale"] = run
+
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launched = counts()
+    check(launched["preemptible_matmul_window"]
+          == sum(r["launches"] for r in runs.values()),
+          "sharded launches add up: every window through the kernel")
+    check(launched["flash_attention"] == launched["rwkv6_scan"]
+          == launched["mamba_scan"] == 0, "the sharded path launches no LM kernel")
+    print(f"[sharded] phase: {time.perf_counter() - t0:.3f} s, window launches "
+          f"{launched['preemptible_matmul_window']}, card peak memory {peak:.3f} GB "
+          f"({held:.3f} GB of it held by earlier phases when it began)")
+    return launched["preemptible_matmul_window"]
+
+
+# ---------------------------------------------------------------------------
 # LM serving path: flash attention, WKV-6, the selective scan,
 # Mistral-NeMo-12B, RWKV-6-7B, Jamba-v0.1-52B
 # ---------------------------------------------------------------------------
@@ -1503,17 +1827,19 @@ def main() -> int:
     launches = phase_serve()
     phase_wall()
     gateway = phase_gateway()
+    sharded = phase_sharded()
     flash_row, wkv_row, scan_row = phase_lm_kernels()
     lm_runs = {name: phase_lm(name, seed=100 + i, n_layers=n, kv_quant=q)
                for i, (name, n, q) in enumerate(LM_MODELS)}
     pmm = kernel_entry(
         "preemptible_matmul_window", "src/repro_torch/csrc/preemptible_matmul.cu",
         "src/repro/kernels/preemptible_matmul/kernel.py:36", "mma.sync",
-        launches + gateway["launches"],
+        launches + gateway["launches"] + sharded,
         dict(head, max_abs_err=max(
             r["max_abs_err"] for r in rows if r["dtype"] == "float32")),
     )
-    pmm.update(launches_by_path={"serve": launches, "gateway": gateway["launches"]},
+    pmm.update(launches_by_path={"serve": launches, "gateway": gateway["launches"],
+                                 "sharded": sharded},
                launch_ms=head["launch_ms"],
                fp32_fma_bound_ms=head["fp32_fma_bound_ms"],
                shape={k: head[k] for k in ("M", "K", "N", "window", "dtype")})

@@ -137,7 +137,7 @@ class CostModel:
         segment on the stage — exactly the service quanta
         `PharosServer` charges between preemption opportunities. The
         DES (``simulate_taskset(chunk_schedules=..., preemption="window")``
-        in `repro.scheduler.des`, not ported yet) takes it to defer
+        in `repro_torch.scheduler.des`) takes it to defer
         preemption at the same boundaries the runtime does."""
         out: list[dict[int, tuple[float, ...]]] = []
         for i in range(self.n_tasks):

@@ -6,7 +6,8 @@ fields and never imports the JAX package. It builds this package's
 own objects: workloads and task sets for the exec model, design points
 and segment tables for the stage split, the analysis and the cost
 model, tenant contracts for admission, serve tasks and server inputs as
-tensors on a chosen device, and LM parameters and decode caches.
+tensors on a chosen device, schedule-trace events, and LM parameters
+and decode caches.
 """
 from __future__ import annotations
 
@@ -25,10 +26,12 @@ from repro_torch.core.rt.task import (
     TaskSet,
     Workload,
 )
+from repro_torch.obs.trace import TraceEvent
 from repro_torch.pipeline.serve import ServeTask
 from repro_torch.traffic.admission import TaskRequest
 
 _LAYER_FIELDS = tuple(f.name for f in dataclasses.fields(LayerDesc))
+_EVENT_FIELDS = tuple(f.name for f in dataclasses.fields(TraceEvent))
 _CHIP_FIELDS = tuple(f.name for f in dataclasses.fields(TPUChip))
 
 
@@ -125,6 +128,19 @@ def serve_task_from(src, *, device="cuda") -> ServeTask:
         deadline=src.deadline,
         input_rows=src.input_rows,
     )
+
+
+def events_from(src) -> list[TraceEvent]:
+    """The schedule events of a recorder (anything with ``events``) or
+    an event list as this package's `TraceEvent`s, field for field
+    (``attrs`` copied)."""
+    out = []
+    for e in getattr(src, "events", src):
+        fields = {f: getattr(e, f) for f in _EVENT_FIELDS}
+        if fields["attrs"] is not None:
+            fields["attrs"] = dict(fields["attrs"])
+        out.append(TraceEvent(**fields))
+    return out
 
 
 def _lm_tensor(arr, device) -> torch.Tensor:

@@ -1,9 +1,8 @@
 """PHAROS design-space exploration (paper §4).
 
-`explore` is the unified driver (SRT-guided beam and the TG baseline
-as configurations of one entry point). The JAX package's exhaustive
-search (`brute`) and its provisioning bridge (`provision`) are not
-ported yet.
+`explore` is the one search API (SRT-guided beam/brute and the TG
+baseline as configurations of one entry point); `provision` bridges a
+search result into the serving stack (scenario + sharded gateway).
 """
 from repro_torch.core.dse.space import (
     DesignPoint,
@@ -21,7 +20,9 @@ from repro_torch.core.dse.objective import (
     TotalLatency,
 )
 from repro_torch.core.dse.beam import BeamResult, BeamStats, beam_search
+from repro_torch.core.dse.brute import brute_force_search
 from repro_torch.core.dse.explore import DSEConfig, ExploreResult, explore
+from repro_torch.core.dse.provision import ProvisionPlan, provision
 from repro_torch.core.dse.throughput import (
     TGDesign,
     throughput_guided_design,
@@ -45,9 +46,12 @@ __all__ = [
     "BeamResult",
     "BeamStats",
     "beam_search",
+    "brute_force_search",
     "DSEConfig",
     "ExploreResult",
     "explore",
+    "ProvisionPlan",
+    "provision",
     "TGDesign",
     "throughput_guided_design",
     "tg_simtasks",

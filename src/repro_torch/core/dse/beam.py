@@ -12,7 +12,7 @@ partitioning (line 12). Top-``B`` children by max-utilization survive
 each iteration.
 
 ``beam_width=None`` gives the brute-force BFS baseline (B = +inf,
-paper §5.4) used by the JAX package's `repro.core.dse.brute`.
+paper §5.4) used by `repro_torch.core.dse.brute`.
 
 Evaluation is **batched**: each iteration enumerates every child of
 every parent, then prices all the new accelerators in one

@@ -8,7 +8,7 @@ A model is a stack of residual blocks, block = (mixer, ffn), with mixers
 Jamba hybrid (mamba and attention mixers, dense and MoE ffns). The MoE
 ffn is `layers.moe_dropless`, the reference's host path; its GShard
 capacity path is taken there only under an SPMD sharding policy and
-comes with distribution (ROADMAP.md, slice 6).
+comes with distribution (ROADMAP.md, slice 9).
 
 Parameters and caches are held per layer, as a list of plain dicts
 (``params["blocks"][i] = {"mixer": {...}, "ffn": {...}}``, ``cache[i] =

@@ -268,9 +268,7 @@ class PharosServer:
     time. Requires an injected (virtual) clock — advancing a wall clock
     by modeled WCETs would be meaningless.
 
-    ``trace`` (any recorder with ``enabled`` and the
-    ``emit(kind, t, layer, task, stage, shard, release=, attrs=)``
-    method of the JAX package's `TraceRecorder`) captures the runtime's
+    ``trace`` (a `repro_torch.obs.TraceRecorder`) captures the runtime's
     schedule as structured events — release / dispatch /
     preempt_store / preempt_load (xi = 0: the virtual executor keeps
     accumulators resident, nothing spills) / segment_end / complete /

@@ -223,7 +223,7 @@ class SimConfig:
     #: an optional ``drain_events()`` hook into ``mode_switch`` trace
     #: events and `SimResult.mode_switches`)
     shedding: ReleaseShedding | None = None
-    #: schedule-trace sink (duck-typed `repro.obs.TraceRecorder` — the
+    #: schedule-trace sink (duck-typed `repro_torch.obs.TraceRecorder` — the
     #: DES stays dependency-free). Resolved once per `simulate` call:
     #: None or a disabled recorder means zero per-event work and zero
     #: events emitted; an enabled recorder receives release / dispatch /
@@ -360,7 +360,7 @@ def simulate(tasks: list[SimTask], cfg: SimConfig) -> SimResult:
     preemptive = cfg.policy == "edf"
     window_mode = cfg.preemption == "window"
     key = _job_key_edf if preemptive else _job_key_fifo
-    # trace sink resolved once (`repro.obs.TraceRecorder.sink`):
+    # trace sink resolved once (`repro_torch.obs.TraceRecorder.sink`):
     # disabled tracing costs one `is not None` test per emission site
     # and emits nothing at all; enabled tracing pays one call + one
     # row tuple per event — the <5% DES budget obs_bench enforces
@@ -853,7 +853,7 @@ def simulate_taskset(
     stage (non-chained mapping orders) cannot carry per-stage chunk
     schedules — the map would be ambiguous per visit.
 
-    ``trace`` optionally forwards a `repro.obs.TraceRecorder` to
+    ``trace`` optionally forwards a `repro_torch.obs.TraceRecorder` to
     `SimConfig.trace` (None: tracing off, zero events).
     """
     if arrivals is not None and len(arrivals) != len(taskset):

@@ -25,13 +25,20 @@ an *online* layer in front of the serving runtime:
   and symmetric recovery when the backlog drains;
 - `gateway`   — `TrafficGateway`: the admission-controlled front door
   releasing `ArrivalProcess` traffic into a `PharosServer`;
+- `shard`     — `ShardedGateway`: K gateway replicas of one pipeline
+  with pluggable tenant placement (hash / least-loaded / slack-aware),
+  co-simulated on one shared `VirtualClock` (and, in elastic mode,
+  accepting live tenant re-homing mid-run);
+- `migration` — `MigrationController`: slack-aware live tenant
+  migration between shards — drain the donor, re-prove the Eq. 3
+  contract on the target, commit only if the proof succeeds;
+- `autoscale` — `Autoscaler`: epoch-based elastic shard fleet, growing
+  K when placement is unprovable and draining the emptiest shard when
+  the survivors re-prove elsewhere;
 - `scenarios` — named traffic mixes (smart-transportation style) built
   from the paper workloads and the LM `configs/`;
 - `clock`     — `WallClock` / deterministic `VirtualClock` shared by
   gateway and server.
-
-The JAX package's sharded gateway (`shard`), live migration
-(`migration`) and autoscaler (`autoscale`) are not ported yet.
 """
 from repro_torch.traffic.admission import (
     CRITICALITY_HI,
@@ -52,8 +59,19 @@ from repro_torch.traffic.arrival import (
     TraceArrivals,
     merge_arrivals,
 )
+from repro_torch.traffic.autoscale import (
+    AutoscaleReport,
+    Autoscaler,
+    EpochResult,
+    RampPhase,
+)
 from repro_torch.traffic.clock import VirtualClock, WallClock
 from repro_torch.traffic.gateway import GatewayReport, TrafficGateway
+from repro_torch.traffic.migration import (
+    MigrationController,
+    MigrationPlan,
+    MigrationRecord,
+)
 from repro_torch.traffic.modes import (
     MODE_HI,
     MODE_NORMAL,
@@ -74,6 +92,18 @@ from repro_torch.traffic.scenarios import (
     register,
     replicate,
     resolve_problem,
+)
+from repro_torch.traffic.shard import (
+    HashByTenant,
+    LeastLoaded,
+    ShardedGateway,
+    ShardedReport,
+    ShardHeadroom,
+    ShardPlan,
+    SlackAware,
+    built_gateway,
+    get_placement,
+    plan_shards,
 )
 from repro_torch.traffic.shedding import (
     BacklogMonitor,
@@ -120,6 +150,13 @@ __all__ = [
     "register",
     "replicate",
     "resolve_problem",
+    "MigrationController",
+    "MigrationPlan",
+    "MigrationRecord",
+    "Autoscaler",
+    "AutoscaleReport",
+    "EpochResult",
+    "RampPhase",
     "BacklogMonitor",
     "RejectNewest",
     "ShedByValue",
@@ -128,4 +165,14 @@ __all__ = [
     "get_policy",
     "RateLimiter",
     "TokenBucket",
+    "ShardedGateway",
+    "ShardedReport",
+    "ShardHeadroom",
+    "ShardPlan",
+    "HashByTenant",
+    "LeastLoaded",
+    "SlackAware",
+    "built_gateway",
+    "get_placement",
+    "plan_shards",
 ]

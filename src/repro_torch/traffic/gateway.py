@@ -113,7 +113,7 @@ class GatewayReport:
 @dataclass
 class _RunState:
     """Release-loop state between `begin_run` and `finish_run` — what the
-    shared-clock co-simulation driver (the JAX package's `repro.traffic.shard`) advances
+    shared-clock co-simulation loop (`repro_torch.traffic.shard`) advances
     one event at a time across K gateways."""
 
     horizon_s: float
@@ -168,7 +168,7 @@ class TrafficGateway:
         #: commit order (mirrors `SimResult.mode_switches`)
         self.mode_switches: list[tuple[float, str, tuple[str, ...]]] = []
         self.clock = clock or WallClock()
-        # schedule-trace handle (duck-typed `repro.obs.TraceRecorder`), resolved
+        # schedule-trace handle (`repro_torch.obs.TraceRecorder`), resolved
         # once: disabled tracing emits nothing and costs nothing.
         # ``shard`` tags every event when this gateway is one
         # `ShardedGateway` replica.

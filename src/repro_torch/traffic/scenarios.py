@@ -355,7 +355,7 @@ def materialize(
     """Turn a chosen `DesignPoint` into a full `BuiltScenario`: segment
     table, admission contracts and seeded traffic. This is the
     DSE -> serving half of `build`, split out so the provisioning
-    bridge (the JAX package's `repro.core.dse.provision`) can materialize *any* claimed-
+    bridge (`repro_torch.core.dse.provision`) can materialize *any* claimed-
     feasible design — not just the one `build` would have searched."""
     from repro_torch.core.dse.space import evaluate_design
 
@@ -401,7 +401,7 @@ def build(
     """Resolve workloads, size periods, run the DSE, seed the traffic.
 
     ``design`` (a `DesignPoint`) skips the search and materializes the
-    given design instead — the JAX package's `repro.core.dse.provision` path.
+    given design instead — the `repro_torch.core.dse.provision` path.
     """
     from repro_torch.core.dse.explore import explore
 
@@ -429,8 +429,8 @@ def replicate(built: BuiltScenario, copies: int) -> BuiltScenario:
     pipeline design: names suffixed ``#c<i>``, traffic re-seeded per
     copy (same shapes, fresh randomness), per-task design splits
     duplicated. The result deliberately overcommits one pipeline —
-    the population the sharded admission (`repro.traffic.shard`) has
-    to triage and the autoscaler (`repro.traffic.autoscale`) has to
+    the population the sharded admission (`repro_torch.traffic.shard`) has
+    to triage and the autoscaler (`repro_torch.traffic.autoscale`) has to
     absorb by growing the fleet."""
     from dataclasses import replace as dc_replace
 

@@ -26,10 +26,12 @@ decode step: the card's bf16-operand, fp32-result products against the
 CPU's fp32 products of the same bf16-rounded operands, which differ only
 in summation order (1e-5 of the max in fp32; relative L2 3e-2 in bf16,
 where the output's own rounding may flip), with equal codes and scales.
-The gateway on the card runs through ``chip_smoke.py``'s gateway
-helpers at a reduced size, with that phase's checks: report equal to
-the CPU run's, one launch per window, every completed job's chained
-output within ``CHAIN_REL_TOL`` of float64.
+The gateway and the sharded gateway (provisioned, migrating,
+autoscaled) on the card run through ``chip_smoke.py``'s gateway and
+sharded-phase helpers at a reduced size, with those phases' checks:
+report (and for the sharded runs trace) equal to the CPU run's, one
+launch per window, every completed job's chained output within
+``CHAIN_REL_TOL`` of float64.
 """
 import dataclasses
 import importlib.util
@@ -545,3 +547,42 @@ def test_gateway_on_card_equals_cpu_run_with_every_window_a_launch(card, name):
     assert run["err"] <= smoke.CHAIN_REL_TOL
     if lm is not None:
         assert len(run["tasks"][lm].weights) == 11
+
+
+# ---------------------------------------------------------------------------
+# the sharded gateway on the card, through chip_smoke.py's sharded-phase
+# helpers (the ones its sharded phase drives)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["provisioned", "migration", "autoscale"])
+def test_sharded_on_card_equals_cpu_run_with_every_window_a_launch(card, case):
+    """The sharded phase's runs at full width and shorter horizons:
+    sharded_city provisioned over 2 shards for 10 periods; the elastic
+    fleet migrating its first tenant, 10 periods; the autoscaler's
+    grow-and-shrink ramp over two copies of multi_tenant_rush, 2 periods
+    a plateau. Inside `sharded_case`: the card's report, trace and
+    trace metrics equal the port's CPU run, the kernel launches equal
+    the windows plus each shard server's warm-up, and every completed
+    job's chained output of every shard is within ``CHAIN_REL_TOL`` of
+    float64."""
+    smoke = _load_smoke()
+    if case == "autoscale":
+        population = smoke.replicate(
+            smoke.search_design(smoke.AUTOSCALE_SCENARIO)[0], smoke.AUTOSCALE_COPIES)
+        phases = smoke.autoscale_phases(population, periods=2.0)
+        make = smoke.autoscale_run(population, phases)
+    else:
+        plan = smoke.provision_sharded()
+        make = (smoke.provisioned_run(plan, periods=10.0) if case == "provisioned"
+                else smoke.migration_run(plan.built, periods=10.0))
+    run = smoke.sharded_case(case, make)
+    tally = run["tally"]
+    assert run["launches"] == tally["windows"] + tally["warmup"] > 0
+    assert tally["outputs"] == tally["completed"] > 0
+    assert tally["err"] <= smoke.CHAIN_REL_TOL
+    if case == "migration":
+        (rec,) = run["extra"]["records"]
+        assert rec.committed and rec.target != rec.donor
+    if case == "autoscale":
+        shards = run["report"].shard_counts()
+        assert shards[1] > shards[0] and shards[2] < shards[1]

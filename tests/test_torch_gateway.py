@@ -7,8 +7,9 @@ the exec cost model, with the overload authority ``chip_smoke.py``'s
 gateway phase arms: reject-newest shedding, or the mixed-criticality
 mode switch where a tenant is HI. A virtual-clock run depends only on
 window counts and WCETs, so the two `GatewayReport`s must be equal
-field for field and the two schedule traces (the reference's
-`TraceRecorder` on both sides) identical. The port's side runs through
+field for field and the two schedule traces (each package's own
+`TraceRecorder`, compared through `repro_torch.convert.events_from` by
+both packages' `trace_diff`) identical. The port's side runs through
 ``chip_smoke.py``'s own helpers, the ones its card phase drives.
 """
 import dataclasses
@@ -20,8 +21,8 @@ import torch
 
 from repro.conformance import CostModel as RefCostModel
 from repro.core.perfmodel.hardware import paper_platform as ref_platform
-from repro.obs import TraceRecorder, trace_diff
-from repro.obs.trace import EVENT_KINDS
+from repro.obs import TraceRecorder as RefRecorder
+from repro.obs import trace_diff as ref_trace_diff
 from repro.pipeline.serve import PharosServer as RefServer
 from repro.traffic import CRITICALITY_HI as REF_HI
 from repro.traffic.admission import AdmissionController as RefAdmission
@@ -32,7 +33,9 @@ from repro.traffic.scenarios import SCENARIOS as REF_SCENARIOS
 from repro.traffic.scenarios import build as ref_build
 from repro.traffic.scenarios import get_scenario as ref_get_scenario
 from repro.traffic.shedding import get_policy as ref_get_policy
+from repro_torch import convert
 from repro_torch.core.perfmodel.hardware import paper_platform
+from repro_torch.obs import EVENT_KINDS, TraceRecorder, trace_diff
 from repro_torch.traffic import GatewayReport, TrafficGateway, VirtualClock
 from repro_torch.traffic.scenarios import build, get_scenario
 
@@ -115,7 +118,7 @@ def test_gateway_report_and_trace_match_reference(smoke, builds, name, backend):
     assert smoke.WINDOW_TILES == WINDOW_TILES
     assert smoke.design_summary(b.design) == smoke.design_summary(ref_b.design)
     horizon = HORIZON_PERIODS * max(r.period for r in ref_b.requests)
-    rtr, ptr = TraceRecorder(), TraceRecorder()
+    rtr, ptr = RefRecorder(), TraceRecorder()
     want = _ref_gateway_run(ref_b, horizon, rtr, backend)
     tasks, requests, arrivals, cm = smoke.gateway_bundle(
         b, device="cpu", max_dim=MAX_DIM, backend=backend)
@@ -126,9 +129,13 @@ def test_gateway_report_and_trace_match_reference(smoke, builds, name, backend):
     sr = want.server_report
     assert sr.jobs_completed > 0 and sr.windows_executed > 0
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    d = trace_diff(rtr, ptr, kinds=tuple(EVENT_KINDS), names=("jax", "torch"))
+    ref_events = convert.events_from(rtr)
+    d = trace_diff(ref_events, ptr, kinds=EVENT_KINDS, names=("jax", "torch"))
     assert d.identical, d.summary()
     assert d.compared == len(rtr.events) == len(ptr.events) > 0
+    rd = ref_trace_diff(rtr, ptr.events, kinds=EVENT_KINDS, names=("jax", "torch"))
+    assert rd.identical and rd.compared == d.compared
+    assert ptr.events == ref_events
     assert {e.kind for e in ptr.events} <= set(EVENT_KINDS)
     if name == "overload_2x":
         assert got.total_shed() > 0, "overload_2x must shed"

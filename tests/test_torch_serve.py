@@ -2,10 +2,11 @@
 
 Both servers run on a virtual clock driven by the exec cost model, so
 the schedule is decided by the model and the two reports must be equal
-field for field, and their schedule traces identical. Weights and inputs
-are the reference's, carried across as numpy arrays (`repro_torch.convert`);
-chained outputs then agree to rtol 1e-3 (fp32 products summed in another
-order, as in ``tests/test_pipeline.py``). Widths stay at or below 512.
+field for field, and their schedule traces (each package's own recorder)
+identical. Weights and inputs are the reference's, carried across as
+numpy arrays (`repro_torch.convert`); chained outputs then agree to
+rtol 1e-3 (fp32 products summed in another order, as in
+``tests/test_pipeline.py``). Widths stay at or below 512.
 """
 import dataclasses
 import importlib.util
@@ -18,7 +19,7 @@ import torch
 
 from repro.conformance import CostModel as RefCostModel
 from repro.core.perfmodel.hardware import paper_platform as ref_platform
-from repro.obs import TraceRecorder, trace_diff
+from repro.obs import TraceRecorder as RefRecorder
 from repro.pipeline.serve import PharosServer as RefServer
 from repro.pipeline.serve import ServeTask as RefServeTask
 from repro.pipeline.serve import window_plan as ref_window_plan
@@ -27,6 +28,7 @@ from repro.traffic.clock import VirtualClock as RefClock
 from repro.traffic.scenarios import build, get_scenario
 from repro_torch import convert
 from repro_torch.conformance import CostModel
+from repro_torch.obs import TraceRecorder, trace_diff
 from repro_torch.pipeline import PharosServer, ServeTask, design_to_segments
 from repro_torch.pipeline.serve import window_plan
 from repro_torch.traffic.clock import VirtualClock
@@ -108,7 +110,7 @@ def _run_pair(ref_tasks, port_tasks, n_stages, *, policy, backend,
               ref_cm, port_cm, horizon, inputs):
     window_tiles = GEOMETRIES[backend]
     n_layers = [len(t.weights) for t in ref_tasks]
-    rc, rtr = RefClock(), TraceRecorder()
+    rc, rtr = RefClock(), RefRecorder()
     ref = RefServer(ref_tasks, n_stages, policy=policy, backend=backend,
                     window_tiles=window_tiles, clock=rc.now, sleep=rc.sleep,
                     cost_model=ref_cm, trace=rtr)
@@ -231,7 +233,8 @@ def test_server_matches_reference_on_steady_city(built, policy, backend):
     if policy == "edf":
         assert rrep.preemptions > 0, "the case must exercise preemption"
     assert dataclasses.asdict(prep) == dataclasses.asdict(rrep)
-    d = trace_diff(rtr, ptr, kinds=RUNTIME_KINDS, names=("jax", "torch"))
+    d = trace_diff(convert.events_from(rtr), ptr, kinds=RUNTIME_KINDS,
+                   names=("jax", "torch"))
     assert d.identical, d.summary()
     assert d.compared == len(rtr.events) == len(ptr.events)
     assert rout.keys() == pout.keys() and rout
@@ -268,7 +271,7 @@ def test_preempted_result_is_exact(backend):
     )
     assert prep.preemptions > 0, "EDF must preempt the heavy job"
     assert dataclasses.asdict(prep) == dataclasses.asdict(rrep)
-    assert trace_diff(rtr, ptr, kinds=RUNTIME_KINDS).identical
+    assert trace_diff(convert.events_from(rtr), ptr, kinds=RUNTIME_KINDS).identical
     w = _np_weights(specs[0][1], specs[0][5])
     want = inputs[0] @ w[0] @ w[1]
     assert pout["heavy"], "no heavy job finished"
