@@ -91,7 +91,26 @@ Phases, each printing what it finds; any failure exits non-zero:
              against the port's own CPU run of the same weights and
              tokens, and the times under the PyTorch profiler with the
              card's busy share.
-9. report  — a ``kernels`` JSON line, the card's name and power limit,
+9. train   — the flash-attention backward kernel against its plain
+             version at StableLM-1.6B's training shape (B 8, S 2048, 32
+             heads of 64, bf16), Mistral-NeMo's GQA shape (B 2, S 2048,
+             32/8 heads of 128, bf16) and a ragged fp32 shape, each
+             gradient within ``BACKWARD_TOL`` and two launches
+             bit-identical, with its card time, the plain version's,
+             SDPA's backward alone (a yardstick the port never calls) and
+             its bound; one train step of StableLM-1.6B at full width
+             and 2 layers against the port's own CPU run (loss, grad
+             norm, every gradient leaf, every parameter after the AdamW
+             update); then the main path, ``train_loop`` on StableLM-1.6B
+             at full width and depth (24 layers, bf16 parameters, fp32
+             AdamW moments) for 8 steps at global batch 8 x seq 2048:
+             finite losses and grad norms, two flash forward launches
+             per layer per step (one more under remat) and one backward,
+             no other LM kernel; ms per step, tokens/s, card peak memory,
+             the last step under the profiler (busy share, top kernels);
+             last, a checkpoint resume on the card (smoke Minitron-4B at
+             head width 64, 20 steps + resume to 30 against 30 straight).
+10. report — a ``kernels`` JSON line, the card's name and power limit,
              and the result line.
 
 Exits with code 2 and prints no result when no CUDA card is visible.
@@ -107,6 +126,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -117,15 +137,18 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import _build  # noqa: E402
-from repro_torch.configs import load_config  # noqa: E402
+from repro_torch.configs import load_config, smoke_config  # noqa: E402
 from repro_torch.conformance import CostModel  # noqa: E402
 from repro_torch.core.dse import DSEConfig, explore, provision  # noqa: E402
 from repro_torch.core.perfmodel.hardware import paper_platform  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_backward_call,
     flash_attention_call,
 )
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    BACKWARD_TOL,
     KERNEL_TOL as FLASH_TOL,
+    attention_backward_plain,
     attention_plain,
     tol_ratio,
 )
@@ -146,11 +169,18 @@ from repro_torch.kernels.preemptible_matmul.ref import (  # noqa: E402
 )
 from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_call  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_plain  # noqa: E402
-from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticTokenDataset  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    make_prefill_step,
+    make_serve_step,
+    value_and_grad,
+)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.module import param_bytes, param_count  # noqa: E402
 from repro_torch.obs import EVENT_KINDS, MetricsRegistry, TraceRecorder, trace_diff  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.pipeline import PharosServer, design_to_segments  # noqa: E402
 from repro_torch.pipeline.serve import window_plan  # noqa: E402
 from repro_torch.traffic import (  # noqa: E402
@@ -171,6 +201,7 @@ from repro_torch.traffic import (  # noqa: E402
 )
 from repro_torch.traffic.clock import VirtualClock, WallClock  # noqa: E402
 from repro_torch.traffic.shedding import get_policy  # noqa: E402
+from repro_torch.tree import flatten_with_paths  # noqa: E402
 
 BLOCK = (128, 128, 128)
 WINDOW_TILES = 4  # PharosServer's default, the "pallas" geometry's request
@@ -1264,6 +1295,7 @@ def reset_counts() -> None:
     """Every kernel's launch count to 0."""
     matmul_window_call.launches = 0
     flash_attention_call.launches = 0
+    flash_attention_backward_call.launches = 0
     rwkv6_scan_call.launches = 0
     mamba_scan_call.launches = 0
 
@@ -1592,7 +1624,8 @@ def card_vs_cpu(name, cfg, seed) -> dict:
 
 
 #: the port's own kernels by the name the profiler gives them
-PORT_KERNELS = ("window_kernel", "fa_kernel", "wkv6_kernel", "scan_kernel")
+PORT_KERNELS = ("window_kernel", "fa_kernel", "wkv6_kernel", "scan_kernel",
+                "stats_kernel", "dkdv_kernel", "dq_kernel")
 
 
 def _on_card(prof) -> tuple[float, int, list, dict]:
@@ -1776,6 +1809,292 @@ def phase_lm(name: str, seed: int, n_layers=None, kv_quant=False) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# training: the flash-attention backward, StableLM-1.6B train steps
+# ---------------------------------------------------------------------------
+#: the main path: `train_loop` on StableLM-1.6B at full width and depth
+TRAIN_MODEL = "stablelm_1_6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR, TRAIN_SEED = 8, 2048, 8, 3e-4, 0
+#: one train step at full width and 2 layers, card against the port's own
+#: CPU run: loss, grad norm, every gradient leaf and every parameter after
+#: the AdamW update within the 2-layer serving bound (CARD_CPU_REL_L2;
+#: bf16 products round at other places in cuBLAS and the CPU's kernels)
+TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 1, 256
+#: resume on the card: the JAX package's own case (tests/test_system.py,
+#: test_training_checkpoint_resume_identical) on smoke Minitron-4B with
+#: its head width set to 64, the kernels' narrowest; its tolerance
+RESUME_RTOL = 1e-4
+
+
+def bwd_bound(B, S, H, Hkv, hd, es):
+    """Least time (ms) for the causal attention backward, and what bounds
+    it: q, k, v, o, dO read and dq, dk, dv written once over memory
+    bandwidth, against its five products (s, dP, dV, dQ, dK: 2 * hd flops
+    each per (query, key <= query) pair) at the bf16 tensor-core peak."""
+    nbytes = 4 * B * S * (H + Hkv) * hd * es
+    flops = 5 * 2.0 * hd * B * H * S * (S + 1) / 2
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bwd_case(B, S, H, Hkv, hd, dtype, seed):
+    """The backward kernel against `attention_backward_plain` from the
+    forward kernel's output: each gradient within BACKWARD_TOL, a second
+    launch bit-identical; its card time, the plain version's, SDPA's
+    backward alone and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    o = flash_attention_call(q, k, v)
+    got = flash_attention_backward_call(q, k, v, o, do)
+    again = flash_attention_backward_call(q, k, v, o, do)
+    want = attention_backward_plain(q, k, v, o, do)
+    torch.cuda.synchronize()
+    what = f"flash backward at B={B} S={S} H={H}/{Hkv} hd={hd} {dtype}"
+    ratios = [tol_ratio(g, w, BACKWARD_TOL) for g, w in zip(got, want)]
+    diff = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    for name, r in zip(("dq", "dk", "dv"), ratios):
+        check(r <= 1.0, f"{what}: {name} error {r:.3g} x the limit "
+              f"(rtol, floor) {BACKWARD_TOL[dtype]}")
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          f"{what}: two launches differ")
+    del got, again, want
+    ms = device_ms(lambda: flash_attention_backward_call(q, k, v, o, do), reps=3)
+    plain_ms = device_ms(lambda: attention_backward_plain(q, k, v, o, do), reps=1)
+    # SDPA's backward alone: its forward runs once, outside the timing
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=H != Hkv)
+    dot = do.transpose(1, 2)
+    library_ms = cuda_ms(
+        lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
+        reps=5)
+    del out, qt, kt, vt
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = bwd_bound(B, S, H, Hkv, hd, q.element_size())
+    return {
+        "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
+        "dtype": str(dtype).replace("torch.", ""),
+        "max_abs_err": diff, "tol_ratio": max(ratios), "ms": ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / abs(b)
+
+
+def train_card_vs_cpu(cfg, seed) -> dict:
+    """One train step (loss, gradients, AdamW update) of a 2-layer model
+    at full width, on the card and on the CPU from the same bf16 weights
+    and batch: the step `make_train_step` takes, written out so that its
+    gradients can be compared too."""
+    small = dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = lm.init_params(gen, small, torch.bfloat16, "cuda")
+    raw = SyntheticTokenDataset(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_CPU_SEQ, global_batch=TRAIN_CPU_BATCH,
+        seed=seed)).batch(0)
+    opt_cfg = AdamWConfig(lr_peak=TRAIN_LR, total_steps=TRAIN_STEPS)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        p = params if device == "cuda" else _to(params, "cpu")
+        batch = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+        t0 = time.perf_counter()
+        (loss, _), grads = value_and_grad(p, small, batch)
+        new, _, om = adamw_update(p, grads, adamw_init(p), opt_cfg,
+                                  decay=lm.decay_mask(p))
+        loss, gnorm = loss.item(), om["grad_norm"].item()
+        runs[device] = (loss, gnorm, _to(grads, "cpu"), _to(new, "cpu"),
+                        time.perf_counter() - t0)
+        del p, grads, new
+    del params
+    torch.cuda.empty_cache()
+    (c_loss, c_gn, c_g, c_p, c_s), (h_loss, h_gn, h_g, h_p, h_s) = (
+        runs["cuda"], runs["cpu"])
+    check(math.isfinite(c_loss) and math.isfinite(c_gn), "finite card loss")
+    worst = {}
+    for kind, got, want in (("gradient", c_g, h_g), ("parameter", c_p, h_p)):
+        paths, g_leaves, _ = flatten_with_paths(got)
+        _, w_leaves, _ = flatten_with_paths(want)
+        errs = [(_rel_l2(g, w), path) for g, w, path in zip(g_leaves, w_leaves, paths)]
+        worst[kind] = max(errs)
+        check(worst[kind][0] <= CARD_CPU_REL_L2,
+              f"2-layer train step card vs CPU: {kind} {worst[kind][1]} rel L2 "
+              f"{worst[kind][0]:.3g} > {CARD_CPU_REL_L2}")
+    for name, a, b in (("loss", c_loss, h_loss), ("grad norm", c_gn, h_gn)):
+        check(_rel(a, b) <= CARD_CPU_REL_L2,
+              f"2-layer train step card vs CPU: {name} {a} vs {b}")
+    print(f"[train] card vs CPU, {TRAIN_CPU_LAYERS} layers at full width, "
+          f"B={TRAIN_CPU_BATCH} S={TRAIN_CPU_SEQ}, one AdamW step: loss {c_loss:.6f} "
+          f"vs {h_loss:.6f} (rel {_rel(c_loss, h_loss):.3g}), grad norm {c_gn:.6f} "
+          f"vs {h_gn:.6f} (rel {_rel(c_gn, h_gn):.3g}); worst leaf rel L2: "
+          f"gradient {worst['gradient'][0]:.3g} ({worst['gradient'][1]}), "
+          f"parameter after the update {worst['parameter'][0]:.3g} "
+          f"({worst['parameter'][1]}), all <= {CARD_CPU_REL_L2}; host s card "
+          f"{c_s:.3f}, CPU {h_s:.3f}")
+    return {"loss_rel": _rel(c_loss, h_loss), "grad_norm_rel": _rel(c_gn, h_gn),
+            "worst_grad_rel_l2": worst["gradient"][0],
+            "worst_param_rel_l2": worst["parameter"][0]}
+
+
+@contextlib.contextmanager
+def train_step_metrics():
+    """Every step's metrics (loss, grad norm, lr) of the `train_loop` runs
+    inside, collected by wrapping the step function it builds."""
+    seen, make = [], train_mod.make_train_step
+
+    def wrapped(*args, **kwargs):
+        step_fn = make(*args, **kwargs)
+
+        def step(*step_args):
+            out = step_fn(*step_args)
+            seen.append(out[2])
+            return out
+
+        return step
+
+    train_mod.make_train_step = wrapped
+    try:
+        yield seen
+    finally:
+        train_mod.make_train_step = make
+
+
+def train_main_path(cfg) -> dict:
+    """`train_loop` at full width and depth: the main path of this phase.
+    Host clock at each step's end (its loss read back, so synchronised);
+    the last step runs under the profiler and is left out of ms per step."""
+    marks, prof = [], profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def on_step(step, loss):
+        marks.append(time.perf_counter())
+        if step == TRAIN_STEPS - 2:
+            prof.__enter__()
+        elif step == TRAIN_STEPS - 1:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the main path starts here
+    with train_step_metrics() as metrics:
+        t0 = time.perf_counter()
+        losses = train_mod.train_loop(
+            cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            lr=TRAIN_LR, seed=TRAIN_SEED, log_every=1, on_step=on_step,
+            device="cuda")
+    launched = dict(counts(),
+                    flash_attention_backward=flash_attention_backward_call.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gnorms = [m["grad_norm"].item() for m in metrics]
+    check(len(losses) == len(gnorms) == TRAIN_STEPS, "one loss per step")
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"finite losses {losses} and grad norms {gnorms}")
+    n_attn = sum(m == "attn" for m, _ in cfg.layer_plan())
+    for kernel, per_step in (("flash_attention", 2 * n_attn),
+                             ("flash_attention_backward", n_attn)):
+        check(launched[kernel] == per_step * TRAIN_STEPS,
+              f"{launched[kernel]} {kernel} launches in {TRAIN_STEPS} steps, want "
+              f"{per_step} per step")
+    for kernel in ("preemptible_matmul_window", "rwkv6_scan", "mamba_scan"):
+        check(launched[kernel] == 0, f"no {kernel} launches in training")
+    step_s = [b - a for a, b in zip(marks[:-2], marks[1:-1])]  # steps 1 .. N-2
+    ms_step = sum(step_s) / len(step_s) * 1e3
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / (ms_step / 1e3)
+    card_us, n_card, top, own = _on_card(prof)
+    busy = card_us / 1e3 / ms_step
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim}, vocab {cfg.vocab}, bf16 "
+          f"parameters, fp32 AdamW moments; global batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}, {TRAIN_STEPS} steps, lr {TRAIN_LR}, seed {TRAIN_SEED}")
+    print(f"[train] main path launches {launched} ({2 * n_attn} flash forward "
+          f"per step, one per attention layer and one more under remat; "
+          f"{n_attn} backward)")
+    print(f"[train] losses {[round(x, 4) for x in losses]}")
+    print(f"[train] grad norms {[round(x, 4) for x in gnorms]}")
+    print(f"[train] step 0 (with set-up and first calls) {(marks[0] - t0) * 1e3:.3f} "
+          f"ms; steps 1-{TRAIN_STEPS - 2} {ms_step:.3f} ms per step "
+          f"(each {[round(x * 1e3, 3) for x in step_s]}), {tokens_s:.1f} tokens/s; "
+          f"card peak memory {peak_gb:.3f} GB")
+    print(f"[train] step {TRAIN_STEPS - 1} under the profiler: card busy "
+          f"{card_us / 1e3:.3f} ms of {ms_step:.3f} ms ({busy * 100:.2f}%) in "
+          f"{n_card} kernels and copies; top:")
+    for t_us, cnt, key in top:
+        print(f"[train]   {t_us / 1e3:.3f} ms in {cnt} x {key[:70]}")
+    for kernel, (t_us, cnt) in own.items():
+        print(f"[train]   port kernel {kernel}: {t_us / 1e3:.3f} ms in {cnt} "
+              f"({t_us / card_us * 100:.2f}% of the card time)")
+    return {"launches": launched, "losses": losses, "grad_norms": gnorms,
+            "ms_per_step": ms_step, "tokens_per_s": tokens_s, "peak_gb": peak_gb,
+            "busy_share": busy}
+
+
+def train_resume() -> dict:
+    """30 steps straight, and 20 steps then a resume to 30 from the
+    checkpoint, on the card: the last 10 losses agree at RESUME_RTOL.
+    The embedding's backward on the card sums with atomics, so the runs
+    need not agree bit for bit."""
+    cfg = dataclasses.replace(smoke_config(load_config("minitron_4b")), head_dim=64)
+    kw = dict(global_batch=4, seq_len=32, log_every=1000, ckpt_every=10,
+              schedule_steps=30, device="cuda")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        full = train_mod.train_loop(cfg, steps=30, ckpt_dir=os.path.join(root, "a"), **kw)
+        train_mod.train_loop(cfg, steps=20, ckpt_dir=os.path.join(root, "b"), **kw)
+        resumed = train_mod.train_loop(cfg, steps=30, ckpt_dir=os.path.join(root, "b"),
+                                       **kw)
+    worst = max(_rel(a, b) for a, b in zip(resumed[-10:], full[-10:]))
+    check(len(resumed) == 10 and worst <= RESUME_RTOL,
+          f"resume: last 10 losses {resumed[-10:]} vs {full[-10:]}")
+    print(f"[train] resume on the card ({cfg.name}, head width 64): 30 steps "
+          f"straight vs 20 + resume to 30, last 10 losses worst rel diff "
+          f"{worst:.3g} (<= {RESUME_RTOL}); {time.perf_counter() - t0:.3f} s")
+    return {"worst_rel": worst}
+
+
+def phase_train() -> tuple[dict, dict]:
+    """The backward kernel against its plain version, a 2-layer step card
+    vs CPU, the main path, a resume; returns the kernel row the
+    ``kernels`` line reports (StableLM's shape) and the main path's
+    numbers."""
+    t0 = time.perf_counter()
+    cfg = load_config(TRAIN_MODEL)
+    nemo = load_config("mistral_nemo_12b")
+    print("[train] flash backward B S H/Hkv hd dtype | ms plain_ms sdpa_bwd_ms "
+          "bound_ms bound_by | max_abs_err err/limit  (ms: card time, CUDA-graph "
+          "replay; sdpa_bwd_ms: torch.autograd.grad through "
+          "scaled_dot_product_attention, its forward outside, CUDA events around "
+          "back-to-back calls; bound: five products at the bf16 tensor-core peak; "
+          "limit per element rtol|want| + floor rms(want), (rtol, floor) "
+          f"{BACKWARD_TOL[torch.bfloat16]} bf16, {BACKWARD_TOL[torch.float32]} fp32)")
+    rows = []
+    for seed, (B, S, H, Hkv, hd, dtype) in enumerate((
+        (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+         torch.bfloat16),
+        (LM_BATCH, LM_PROMPT, nemo.n_heads, nemo.n_kv_heads, nemo.head_dim,
+         torch.bfloat16),
+        (LM_BATCH, 1000, nemo.n_heads, nemo.n_kv_heads, nemo.head_dim,
+         torch.float32),
+    )):
+        row = bwd_case(B, S, H, Hkv, hd, dtype, 30 + seed)
+        rows.append(row)
+        print(f"[train] flash backward {B} {S} {H}/{Hkv} {hd} {row['dtype']} | "
+              f"{row['ms']:.5f} {row['plain_ms']:.5f} {row['library_ms']:.5f} "
+              f"{row['bound_ms']:.5f} {row['bound_by']} | "
+              f"{row['max_abs_err']:.3g} {row['tol_ratio']:.3g}; bit-identical "
+              "across launches")
+    cpu = train_card_vs_cpu(cfg, TRAIN_SEED + 1)
+    main = train_main_path(cfg)
+    resume = train_resume()
+    print(f"[train] phase: {time.perf_counter() - t0:.3f} s")
+    return rows[0], dict(main, card_vs_cpu=cpu, resume=resume)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1831,6 +2150,7 @@ def main() -> int:
     flash_row, wkv_row, scan_row = phase_lm_kernels()
     lm_runs = {name: phase_lm(name, seed=100 + i, n_layers=n, kv_quant=q)
                for i, (name, n, q) in enumerate(LM_MODELS)}
+    bwd_row, train = phase_train()
     pmm = kernel_entry(
         "preemptible_matmul_window", "src/repro_torch/csrc/preemptible_matmul.cu",
         "src/repro/kernels/preemptible_matmul/kernel.py:36", "mma.sync",
@@ -1862,8 +2182,14 @@ def main() -> int:
         lm_runs["jamba_v0_1_52b"]["launches"]["mamba_scan"], scan_row,
     )
     scan["shape"] = {k: scan_row[k] for k in ("B", "S", "di", "ns", "dtype")}
+    bwd = kernel_entry(
+        "flash_attention_backward", "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "src/repro/models/layers.py:140", "fma",
+        train["launches"]["flash_attention_backward"], bwd_row,
+    )
+    bwd["shape"] = {k: bwd_row[k] for k in ("B", "S", "H", "Hkv", "hd", "dtype")}
     print(previous_line([pmm, flash, wkv, scan]))
-    print(json.dumps({"kernels": [pmm, flash, wkv, scan]}))
+    print(json.dumps({"kernels": [pmm, flash, wkv, scan, bwd]}))
     print(card_line())
     print(json.dumps({
         "ok": True,

@@ -7,7 +7,7 @@ own objects: workloads and task sets for the exec model, design points
 and segment tables for the stage split, the analysis and the cost
 model, tenant contracts for admission, serve tasks and server inputs as
 tensors on a chosen device, schedule-trace events, and LM parameters
-and decode caches.
+(gradients too), AdamW states and decode caches.
 """
 from __future__ import annotations
 
@@ -147,7 +147,7 @@ def _lm_tensor(arr, device) -> torch.Tensor:
     """One array as a tensor of the same dtype. A bfloat16 array (the
     ``ml_dtypes`` type JAX hands to numpy, which torch does not take) is
     carried bit for bit through uint16."""
-    a = np.ascontiguousarray(np.asarray(arr))
+    a = np.asarray(arr)  # .copy() below is C-contiguous; 0-d stays 0-d
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     else:
@@ -178,6 +178,18 @@ def lm_params_from(params, cfg, *, device="cuda"):
     }
     out["blocks"] = _unstack_layers(params["blocks"], cfg.n_layers, device)
     return out
+
+
+def adamw_state_from(state, cfg, *, device="cuda"):
+    """The JAX package's AdamW state of LM parameters (``{"m", "v",
+    "step"}``, ``repro.optim.adamw_init`` over ``repro.models.lm``'s
+    parameters) as this package's: fp32 moments per layer like
+    `lm_params_from`, and the step counter as an int32 scalar."""
+    return {
+        "m": lm_params_from(state["m"], cfg, device=device),
+        "v": lm_params_from(state["v"], cfg, device=device),
+        "step": _lm_tensor(state["step"], device),
+    }
 
 
 def lm_cache_from(cache, cfg, *, device="cuda"):

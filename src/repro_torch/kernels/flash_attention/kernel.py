@@ -1,4 +1,4 @@
-"""Causal GQA flash attention on an NVIDIA H100.
+"""Causal GQA flash attention on an NVIDIA H100, forward and backward.
 
 `flash_attention_call` launches the CUDA kernel of
 ``repro_torch/csrc/flash_attention.cu`` for CUDA tensors and runs the
@@ -8,6 +8,10 @@ the tensor-core kernel (wgmma, K/V through TMA), fp32 tensors to the
 SIMT kernel: one kernel per type. The kernel reads the model's
 (B, S, heads, hd) tensors through their strides, so nothing is
 transposed on either side of the call.
+
+`flash_attention_backward_call` is its gradient: the kernels of
+``repro_torch/csrc/flash_attention_bwd.cu`` for CUDA tensors, the plain
+`ref.attention_backward_plain` for CPU tensors, with the same rule.
 """
 from __future__ import annotations
 
@@ -17,9 +21,14 @@ import functools
 import torch
 
 from repro_torch._build import load_library
-from repro_torch.kernels.flash_attention.ref import attention_plain
+from repro_torch.kernels.flash_attention.ref import (
+    attention_backward_plain,
+    attention_plain,
+)
 
 _SYMBOLS = {torch.float32: "fa_forward_f32", torch.bfloat16: "fa_forward_bf16"}
+_BWD_SYMBOLS = {torch.float32: "fa_backward_f32",
+                torch.bfloat16: "fa_backward_bf16"}
 #: head widths the CUDA kernel is compiled for
 HEAD_DIMS = (64, 128)
 _BLOCK_Q = 64
@@ -34,6 +43,19 @@ def _kernel(dtype: torch.dtype):
     fn = getattr(load_library("flash_attention"), _SYMBOLS[dtype])
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B S H Hkv
+        ctypes.c_int, ctypes.c_int,  # hd, causal
+        ctypes.c_void_p,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _backward_kernel(dtype: torch.dtype):
+    fn = getattr(load_library("flash_attention_bwd"), _BWD_SYMBOLS[dtype])
+    fn.argtypes = [
+        *[ctypes.c_void_p] * 10,  # q k v o do dq dk dv lse delta
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B S H Hkv
         ctypes.c_int, ctypes.c_int,  # hd, causal
         ctypes.c_void_p,  # stream
@@ -68,6 +90,19 @@ def _check(q, k, v) -> None:
         )
 
 
+def _check_cuda(tensors) -> None:
+    """What the CUDA kernels take beyond `_check`: contiguous operands,
+    head width 64 or 128, a grid within the card's limits."""
+    q = tensors[0]
+    B, S, H, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, got {hd}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("every operand must be contiguous")
+    if B * H > _INT32_MAX or -(-S // _BLOCK_Q) > _GRID_Y_MAX:
+        raise ValueError(f"grid too large for B*H={B * H}, S={S}")
+
+
 def flash_attention_call(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """softmax(q kᵀ · hd^-½) v per head, causal by default.
 
@@ -83,17 +118,12 @@ def flash_attention_call(q, k, v, *, causal: bool = True) -> torch.Tensor:
         return attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    B, S, H, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, got {hd}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("q, k and v must be contiguous")
+    _check_cuda((q, k, v))
     if q.dtype == torch.bfloat16 and any(
         t.data_ptr() % _ALIGN for t in (q, k, v)
     ):
         raise ValueError(f"bf16 q, k and v must be {_ALIGN}-byte aligned")
-    if B * H > _INT32_MAX or -(-S // _BLOCK_Q) > _GRID_Y_MAX:
-        raise ValueError(f"grid too large for B*H={B * H}, S={S}")
+    B, S, H, hd = q.shape
     out = torch.empty_like(q)
     fn = _kernel(q.dtype)
     with torch.cuda.device(q.device):
@@ -110,3 +140,56 @@ def flash_attention_call(q, k, v, *, causal: bool = True) -> torch.Tensor:
 
 #: kernel launches since the count was last set to 0 (CUDA path only)
 flash_attention_call.launches = 0
+
+
+def flash_attention_backward_call(q, k, v, o, do, *, causal: bool = True):
+    """Gradients (dq, dk, dv) of ``o = flash_attention_call(q, k, v)``
+    for the cotangent ``do`` of o.
+
+    q, o, do: (B, S, H, hd); k, v: (B, S, Hkv, hd); all float32 or all
+    bfloat16, on one device. Returns dq like q and dk, dv like k, in q's
+    dtype; dk and dv of a KV head sum over its group's query heads. On
+    CUDA every tensor must be contiguous and hd 64 or 128; the kernels
+    run on the current stream, write each gradient element once (no
+    atomics, so results are bit-identical from launch to launch), and a
+    call adds one to ``flash_attention_backward_call.launches``. CPU
+    tensors take the plain version and count nothing.
+    """
+    _check(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype:
+            raise ValueError(
+                f"{name} must match q: {tuple(t.shape)} {t.dtype} against "
+                f"{tuple(q.shape)} {q.dtype}"
+            )
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    if q.device.type == "cpu":
+        return attention_backward_plain(q, k, v, o, do, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check_cuda((q, k, v, o, do))
+    B, S, H, hd = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # per (b, h, row) log-sum-exp and rowsum(dO * O), fp32
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    fn = _backward_kernel(q.dtype)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            B, S, H, k.shape[2], hd, int(bool(causal)), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention backward launch failed: CUDA error {err}")
+    flash_attention_backward_call.launches += 1
+    return dq, dk, dv
+
+
+#: backward calls that launched the kernels since the count was last set
+#: to 0 (CUDA path only)
+flash_attention_backward_call.launches = 0

@@ -1,7 +1,35 @@
 """Public flash-attention API over (B, S, H, hd) activations."""
 from __future__ import annotations
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_call
+import torch
+
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_backward_call,
+    flash_attention_call,
+)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient. The
+    forward's q, k, v and output are saved; under activation
+    checkpointing they are dropped and the forward runs again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o = flash_attention_call(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        # the CUDA kernels take contiguous operands only; the cotangent
+        # arrives in whatever layout the next op's gradient left it
+        q, k, v, o = (t.contiguous() for t in ctx.saved_tensors)
+        dq, dk, dv = flash_attention_backward_call(
+            q, k, v, o, do.contiguous(), causal=ctx.causal
+        )
+        return dq, dk, dv, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
@@ -11,5 +39,14 @@ def flash_attention(q, k, v, *, causal: bool = True):
     accumulator are fp32. Any S is taken as it is: the CUDA kernel masks
     its ragged last block, so no block size has to divide S (the JAX
     wrapper shrinks its blocks to a divisor of S instead).
+
+    Differentiable: where grad is enabled and an input requires it, the
+    call records `flash_attention_backward_call` as its gradient. With
+    grad off (serving, under ``torch.inference_mode``) it is the forward
+    kernel alone.
     """
+    if torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad
+    ):
+        return _FlashAttention.apply(q, k, v, causal)
     return flash_attention_call(q, k, v, causal=causal)

@@ -1,10 +1,12 @@
-"""Plain PyTorch version of causal GQA attention: the materialised fp32
-attention of ``repro.kernels.flash_attention.ref.attention_ref``.
+"""Plain PyTorch versions of causal GQA attention and of its gradient:
+the materialised fp32 attention of
+``repro.kernels.flash_attention.ref.attention_ref``, and the gradient
+formulas written out.
 
-It is what `flash_attention_call` runs for CPU tensors and what the CUDA
-kernel is held against on the card. Scores, softmax and the P V product
-are fp32 (the kernel keeps the same statistics in fp32); the output is
-cast to q's type.
+They are what `flash_attention_call` and `flash_attention_backward_call`
+run for CPU tensors and what the CUDA kernels are held against on the
+card. Scores, softmax and every product are fp32 (the kernels keep the
+same statistics in fp32); outputs are cast to q's type.
 """
 from __future__ import annotations
 
@@ -20,6 +22,21 @@ NEG_INF = -1e30
 #: differ only in summation order and the online rescale. The floor covers
 #: outputs that cancel to near 0, where rounding is absolute, not relative.
 KERNEL_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0**-7, 1e-3)}
+
+
+#: (rtol, floor) of the backward kernel's dq, dk and dv against
+#: `attention_backward_plain`, element by element as `KERNEL_TOL`. Both
+#: sides take the same inputs (the forward's o among them), compute every
+#: product and statistic in fp32 and round each gradient once, so bf16
+#: gradients are at most one bf16 ulp apart (2^-7 of |want|). They differ
+#: in summation order (up to S queries times the group's heads for dk and
+#: dv), and in how P is rebuilt: the kernel as exp(s - lse) from its own
+#: log-sum-exp, the plain version as a normalised softmax, ~1e-7 apart
+#: per probability. dS = P (dP - D) cancels to near 0 in many elements,
+#: so those are held to a floor of the gradient's rms rather than to
+#: their own size: 1e-4 of it in fp32, where order differences read
+#: ~1e-6, and 1e-3 in bf16, where one ulp of a small element is absolute.
+BACKWARD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0**-7, 1e-3)}
 
 
 def attention_plain(q, k, v, *, causal: bool = True):
@@ -39,13 +56,48 @@ def attention_plain(q, k, v, *, causal: bool = True):
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
-def tol_ratio(got, want) -> float:
+def attention_backward_plain(q, k, v, o, do, *, causal: bool = True):
+    """Gradients of `attention_plain` at (q, k, v), given its output
+    ``o`` and the output's cotangent ``do``, both (B, S, H, hd).
+
+    With P the causal softmax of s = q kᵀ / √hd:
+    dV = Pᵀ dO, dP = dO Vᵀ, D = rowsum(dO ∘ O), dS = P ∘ (dP − D),
+    dQ = dS K / √hd, dK = dSᵀ Q / √hd, in fp32. dK and dV of a KV head
+    sum over the query heads of its group. Returns (dq, dk, dv) in q's
+    dtype."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    group = H // Hkv
+    scale = hd**-0.5
+    qf = q.float().reshape(B, S, Hkv, group, hd)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(B, S, Hkv, group, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    del s
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    delta = (dof * o.float().reshape(B, S, Hkv, group, hd)).sum(-1)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    del p, dp
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))
+
+
+def tol_ratio(got, want, tol=KERNEL_TOL) -> float:
     """Largest ``|got - want| / (rtol |want| + floor rms(want))`` over the
-    elements, with (rtol, floor) = ``KERNEL_TOL[want.dtype]``: the kernel
-    agrees with the plain version where this is <= 1. Each element is
-    held to its own size, so a wrong late row of causal attention (whose
-    values are far smaller than row 0's) cannot hide behind the largest."""
-    rtol, floor = KERNEL_TOL[want.dtype]
+    elements, with (rtol, floor) = ``tol[want.dtype]`` (`KERNEL_TOL` for
+    the forward, `BACKWARD_TOL` for a gradient): the kernel agrees with
+    the plain version where this is <= 1. Each element is held to its own
+    size, so a wrong late row of causal attention (whose values are far
+    smaller than row 0's) cannot hide behind the largest."""
+    rtol, floor = tol[want.dtype]
     g, w = got.float(), want.float()
     limit = rtol * w.abs() + floor * w.square().mean().sqrt()
     return ((g - w).abs() / limit).max().item()

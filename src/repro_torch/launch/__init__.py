@@ -1,1 +1,1 @@
-"""LM serving step functions (prefill and one-token decode)."""
+"""Step functions (train, prefill, one-token decode) and the training driver."""

@@ -1,6 +1,7 @@
 """Decoder-LM assembler over `ArchConfig` (the counterpart of
-``repro.models.lm``), for LM serving: prefill over a prompt, then one
-token at a time.
+``repro.models.lm``): LM serving (prefill over a prompt, then one token
+at a time) and training (a chunked cross-entropy loss with activation
+checkpointing).
 
 A model is a stack of residual blocks, block = (mixer, ffn), with mixers
 ``attn``, ``mamba`` and ``rwkv`` and ffns ``dense``, ``moe`` and
@@ -18,17 +19,26 @@ package's per-layer shapes, so a cache entry of an attention layer is
 (B, kv, cache_len, hd) (int8 with bf16 scales under ``kv_quant``), one
 of a mamba layer holds ``conv`` and ``ssm``, and one of an RWKV layer
 holds ``S``, ``tmix_last`` and ``cmix_last``. The JAX package's sharding
-policy and remat switch do nothing on one device and have no
-counterpart here.
+policy does nothing on one device and has no counterpart here; its
+remat switch is ``backbone``'s and ``loss_fn``'s ``remat``: one
+``torch.utils.checkpoint`` boundary per repeat of ``cfg.pattern()``, as
+the JAX package checkpoints its scan body.
 
-Entry points (all run under ``torch.inference_mode()``)
-------------------------------------------------------
+Entry points
+------------
 - ``init_params(gen, cfg, dtype, device)``  parameters
+- ``backbone(params, cfg, batch)``          final hidden states (B, S, d),
+  differentiable
+- ``loss_fn(params, cfg, batch)``           (loss, metrics), S-chunked CE,
+  differentiable; attention-only stacks (`check_trainable`)
 - ``forward(params, cfg, batch)``           logits (B, S, V), fp32
 - ``init_cache(cfg, B, cache_len)``         zero decode cache
 - ``prefill(params, cfg, batch, L)``        (last-token logits, cache)
 - ``decode_step(params, cfg, cache, inputs, pos, kv_quant=False)``
   one-token serve step
+
+``forward``, ``prefill`` and ``decode_step`` run under
+``torch.inference_mode()``.
 
 Inputs: ``batch["tokens"]`` (B, S) integer tokens. The JAX package's
 stub modality frontends (``batch["embeds"]``, the VLM and audio
@@ -37,15 +47,21 @@ configs) are not ported and raise here.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as M
 from repro_torch.models.module import dense_init, embed_init, ones
+from repro_torch.tree import tree_map
 
 #: where what the port does not serve yet is queued
 NEXT_SLICE = "ROADMAP.md (the stub frontends of the VLM and audio configs)"
+#: where the backward kernels that training the recurrent mixers needs
+#: are queued
+TRAIN_NEXT_SLICE = ("ROADMAP.md slice 9b (backward kernels for WKV-6 and the "
+                    "selective scan)")
 
 _MIXER_INIT = {"attn": L.attn_init, "mamba": M.mamba_init,
                "rwkv": R.rwkv_tmix_init}
@@ -60,6 +76,20 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend is not ported; see "
             f"{NEXT_SLICE}"
+        )
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise `NotImplementedError` unless every mixer is attention: on the
+    card the recurrent mixers run through forward-only kernels (WKV-6,
+    the selective scan), so their training waits for backward kernels."""
+    check_supported(cfg)
+    recurrent = sorted({m for m, _ in cfg.layer_plan()} - {"attn"})
+    if recurrent:
+        raise NotImplementedError(
+            f"{cfg.name}: training {' and '.join(recurrent)} layers needs "
+            f"backward kernels the port does not have yet; see "
+            f"{TRAIN_NEXT_SLICE}"
         )
 
 
@@ -159,25 +189,107 @@ def _positions(x):
     return torch.arange(Sq, device=x.device).expand(B, Sq)
 
 
+def decay_mask(params):
+    """Which leaves AdamW decays, as a tree of bools like ``params``: the
+    JAX package decays a leaf of ``ndim >= 2`` (`repro.optim.adamw`), and
+    its block leaves carry a leading repeats axis. So here every
+    per-layer leaf is decayed (norm scales and q/k/v biases included),
+    and of the others the matrices (``embed``, ``lm_head``), not
+    ``final_norm``."""
+    return {
+        key: (tree_map(lambda p: p.ndim + 1 >= 2, value) if key == "blocks"
+              else value.ndim >= 2)
+        for key, value in params.items()
+    }
+
+
 # ---------------------------------------------------------------------------
-# forward
+# forward / loss
 # ---------------------------------------------------------------------------
-@torch.inference_mode()
-def backbone(params, cfg: ArchConfig, batch):
-    """Embed -> blocks -> final norm. Returns (B, S, d)."""
+def _apply_repeat(kinds, blocks, x, cfg, positions):
+    """One repeat of ``cfg.pattern()``: the checkpointed unit."""
+    for kind, blk in zip(kinds, blocks):
+        x = _apply_block(kind, blk["mixer"], blk["ffn"], x, cfg, positions)
+    return x
+
+
+def backbone(params, cfg: ArchConfig, batch, *, remat: bool = True):
+    """Embed -> blocks -> final norm. Returns (B, S, d).
+
+    With ``remat`` and grad enabled, each repeat of ``cfg.pattern()`` runs
+    under one ``torch.utils.checkpoint`` boundary: its activations are
+    dropped after the forward and recomputed in the backward, as the JAX
+    package's ``jax.checkpoint`` over its scan body. With grad off the
+    boundary changes nothing and is not taken."""
     check_supported(cfg)
     x = params["embed"][batch["tokens"]]
     positions = _positions(x)
-    for kind, blk in zip(cfg.layer_plan(), params["blocks"]):
-        x = _apply_block(kind, blk["mixer"], blk["ffn"], x, cfg, positions)
+    plan, n_pat = cfg.layer_plan(), len(cfg.pattern())
+    use_remat = remat and torch.is_grad_enabled()
+    for r0 in range(0, cfg.n_layers, n_pat):
+        args = (plan[r0:r0 + n_pat], params["blocks"][r0:r0 + n_pat], x, cfg,
+                positions)
+        if use_remat:
+            x = checkpoint(_apply_repeat, *args, use_reentrant=False)
+        else:
+            x = _apply_repeat(*args)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
 @torch.inference_mode()
 def forward(params, cfg: ArchConfig, batch):
-    """Full logits (B, S, V) in fp32 — for small models and tests."""
+    """Full logits (B, S, V) in fp32 — for small models and tests;
+    training uses `loss_fn` (never materializes all logits at once)."""
     x = backbone(params, cfg, batch)
     return (x @ _head(params, cfg)).float()
+
+
+#: sequence-chunk length for the cross-entropy loop: bounds live logits
+#: memory at (B, CE_CHUNK, V) fp32
+CE_CHUNK = 512
+
+
+def _ce(x_c, head, lab_c, m_c):
+    """Masked cross-entropy total of one chunk, fp32."""
+    logits = (x_c @ head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lab_c[..., None])[..., 0]
+    return ((lse - gold) * m_c).sum()
+
+
+def loss_fn(params, cfg: ArchConfig, batch, *, remat: bool = True):
+    """Mean next-token cross entropy with S-chunked logits.
+
+    ``batch["labels"]`` (B, S) integer; optional ``batch["mask"]`` (B, S)
+    weights (defaults to all-ones). Labels are already shifted by the
+    data pipeline (labels[t] = target for position t). As in the JAX
+    package, the chunk is ``CE_CHUNK`` halved until it divides S, each
+    chunk's logits are recomputed in the backward (one checkpoint per
+    chunk, whatever ``remat``), and the chunk totals are summed in order.
+    Returns (loss, {"loss", "tokens"}) as fp32 scalar tensors.
+    """
+    check_trainable(cfg)
+    x = backbone(params, cfg, batch, remat=remat)
+    head = _head(params, cfg)
+    labels = batch["labels"].long()
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=x.device)
+    Sq = x.shape[1]
+    chunk = min(CE_CHUNK, Sq)
+    while Sq % chunk:
+        chunk //= 2
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, Sq, chunk):
+        part = slice(c0, c0 + chunk)
+        args = (x[:, part], head, labels[:, part], mask[:, part])
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_ce, *args, use_reentrant=False)
+        else:
+            total = total + _ce(*args)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = total / denom
+    return loss, {"loss": loss, "tokens": denom}
 
 
 # ---------------------------------------------------------------------------

@@ -109,7 +109,8 @@ def test_percentile_summary_matches_reference():
 
 def test_kernel_build_is_content_addressed():
     assert _build.source_names() == [
-        "flash_attention", "mamba_scan", "preemptible_matmul", "rwkv6_scan"
+        "flash_attention", "flash_attention_bwd", "mamba_scan",
+        "preemptible_matmul", "rwkv6_scan",
     ]
     path = _build.library_path("preemptible_matmul")
     assert path.parent == _build.BUILD_DIR
@@ -191,3 +192,6 @@ def test_chip_smoke_bounds_price_the_units_that_run_the_products():
     floor, _ = smoke.flash_bound(2, 2048, 32, 8, 128, 2, smoke.FLASH_SPLIT_PRODUCTS)
     assert by == "operations" and round(bound, 5) == 0.06952
     assert floor == pytest.approx(1.5 * bound)
+    # the backward: five products of 2 hd flops per causal pair
+    bound, by = smoke.bwd_bound(8, 2048, 32, 32, 64, 2)
+    assert by == "operations" and round(bound, 5) == 0.34759

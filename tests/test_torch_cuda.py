@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (preemptible matmul, flash attention, WKV-6,
-the selective scan) against their plain versions, on the card. Marked ``cuda``; each test skips, with its reason, where no card
+"""The port's CUDA kernels (preemptible matmul, flash attention and its
+backward, WKV-6, the selective scan) against their plain versions, on the
+card. Marked ``cuda``; each test skips, with its reason, where no card
 is visible. Imports neither JAX nor the JAX package, so it runs where
 only PyTorch is installed::
 
@@ -42,8 +43,16 @@ import pytest
 import torch
 
 from repro_torch.configs import load_config, smoke_config
-from repro_torch.kernels.flash_attention.kernel import flash_attention_call
-from repro_torch.kernels.flash_attention.ref import attention_plain, tol_ratio
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_backward_call,
+    flash_attention_call,
+)
+from repro_torch.kernels.flash_attention.ref import (
+    BACKWARD_TOL,
+    attention_backward_plain,
+    attention_plain,
+    tol_ratio,
+)
 from repro_torch.kernels.mamba_scan.kernel import STAGE_STEPS as SCAN_STAGE_STEPS
 from repro_torch.kernels.mamba_scan.kernel import mamba_scan_call
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_plain
@@ -232,6 +241,101 @@ def test_flash_kernel_refuses_other_head_widths(card):
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_call(q, k, v)
     assert flash_attention_call.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,H,Hkv,hd,causal",
+    [(2, 256, 32, 8, 128, True), (1, 1000, 4, 4, 64, True),
+     (2, 77, 8, 1, 128, True), (1, 200, 4, 2, 64, False),
+     (2, 130, 8, 2, 64, True), (1, 77, 4, 2, 128, False)],
+)
+def test_flash_backward_kernel_matches_plain(card, dtype, B, S, H, Hkv, hd, causal):
+    """dq, dk, dv against the plain gradient formulas, from the forward
+    kernel's own output; a second launch gives the same bits."""
+    q, k, v = _qkv(card, B, S, H, Hkv, hd, dtype, S + H + 1)
+    do = torch.randn(q.shape, generator=torch.Generator(device=card).manual_seed(S),
+                     device=card).to(dtype)
+    o = flash_attention_call(q, k, v, causal=causal)
+    before = flash_attention_backward_call.launches
+    got = flash_attention_backward_call(q, k, v, o, do, causal=causal)
+    again = flash_attention_backward_call(q, k, v, o, do, causal=causal)
+    assert flash_attention_backward_call.launches == before + 2
+    want = attention_backward_plain(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    for g, a, w, like in zip(got, again, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == like.shape
+        assert torch.equal(g, a)
+        assert tol_ratio(g, w, BACKWARD_TOL) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,hd", [(77, 64), (1000, 128)])
+def test_flash_backward_ragged_tile_never_reads_the_next_batch(card, S, hd):
+    """Batch 1 all NaN: batch 0's ragged last tiles must not read it."""
+    q, k, v = _qkv(card, 2, S, 8, 2, hd, torch.bfloat16, S + hd + 2)
+    do = torch.randn_like(q)
+    o = flash_attention_call(q, k, v)
+    for t in (q, k, v, o, do):
+        t[1] = float("nan")
+    got = flash_attention_backward_call(q, k, v, o, do)
+    want = attention_backward_plain(q[:1], k[:1], v[:1], o[:1], do[:1])
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g[0]).all())
+        assert tol_ratio(g[:1], w, BACKWARD_TOL) <= 1.0
+
+
+@pytest.mark.cuda
+def test_flash_backward_refuses_what_it_does_not_take(card):
+    q, k, v = _qkv(card, 1, 64, 2, 2, 96, torch.bfloat16, 0)
+    before = flash_attention_backward_call.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_backward_call(q, k, v, q, q)
+    q, k, v = _qkv(card, 1, 64, 2, 2, 64, torch.bfloat16, 0)
+    strided = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16, device=card)[..., :64]
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_backward_call(q, k, v, q, strided)
+    with pytest.raises(ValueError, match="must match q"):
+        flash_attention_backward_call(q, k, v, q, q.float())
+    assert flash_attention_backward_call.launches == before
+
+
+@pytest.mark.cuda
+def test_smoke_train_step_on_card_matches_cpu(card):
+    """One AdamW step of smoke StableLM in fp32, head width 64 (the
+    kernels' width), on the card and on the CPU from the same weights and
+    batch: loss, grad norm and every parameter within 1e-4 (relative L2
+    for the parameters), through one forward launch per layer, one more
+    under remat and one backward launch per layer."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree import flatten, tree_map
+
+    cfg = dataclasses.replace(smoke_config(load_config("stablelm_1_6b")), head_dim=64)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 96), generator=gen),
+             "labels": torch.randint(0, cfg.vocab, (2, 96), generator=gen),
+             "mask": torch.ones((2, 96))}
+    step = make_train_step(cfg, AdamWConfig(lr_peak=1e-3, warmup_steps=1))
+    results = {}
+    for device in ("cpu", card):
+        p = tree_map(lambda t: t.to(device), params)
+        fwd, bwd = flash_attention_call.launches, flash_attention_backward_call.launches
+        new, _, m = step(p, adamw_init(p), {k: v.to(device) for k, v in batch.items()})
+        if device == card:
+            torch.cuda.synchronize()
+            assert flash_attention_call.launches - fwd == 2 * cfg.n_layers
+            assert flash_attention_backward_call.launches - bwd == cfg.n_layers
+        results[str(device)] = (new, m)
+    (cpu_p, cpu_m), (card_p, card_m) = results["cpu"], results[str(card)]
+    for key in ("loss", "grad_norm"):
+        assert abs(card_m[key].item() - cpu_m[key].item()) <= 1e-4 * abs(cpu_m[key].item())
+    for a, b in zip(flatten(card_p)[0], flatten(cpu_p)[0]):
+        assert ((a.cpu() - b).norm() / b.norm()).item() <= 1e-4
 
 
 def _wkv_inputs(card, B, S, H, hd, seed, logit=None):
