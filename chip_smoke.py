@@ -91,23 +91,30 @@ Phases, each printing what it finds; any failure exits non-zero:
              against the port's own CPU run of the same weights and
              tokens, and the times under the PyTorch profiler with the
              card's busy share.
-9. train   — the flash-attention backward kernel against its plain
-             version at StableLM-1.6B's training shape (B 8, S 2048, 32
-             heads of 64, bf16), Mistral-NeMo's GQA shape (B 2, S 2048,
-             32/8 heads of 128, bf16) and a ragged fp32 shape, each
-             gradient within ``BACKWARD_TOL`` and two launches
+9. train   — the flash forward's log-sum-exp at Mistral-NeMo's shape
+             (against the plain version's; the output the same bits with
+             and without it; the forward's time both ways); the
+             flash-attention backward kernel, fed that log-sum-exp,
+             against its plain version at StableLM-1.6B's training shape
+             (B 8, S 2048, 32 heads of 64, bf16), Mistral-NeMo's GQA shape
+             (B 2, S 2048, 32/8 heads of 128, bf16) and a ragged fp32
+             shape, each gradient within ``BACKWARD_TOL`` and two launches
              bit-identical, with its card time, the plain version's,
-             SDPA's backward alone (a yardstick the port never calls) and
-             its bound; one train step of StableLM-1.6B at full width
+             SDPA's backward alone (a yardstick the port never calls), its
+             bound and its split floor (P and dS as bf16 hi + lo: 10
+             products per pair); one train step of StableLM-1.6B at full width
              and 2 layers against the port's own CPU run (loss, grad
              norm, every gradient leaf, every parameter after the AdamW
              update); then the main path, ``train_loop`` on StableLM-1.6B
              at full width and depth (24 layers, bf16 parameters, fp32
-             AdamW moments) for 8 steps at global batch 8 x seq 2048:
+             AdamW moments) for 8 steps at global batch 8 x seq 2048,
+             with the objects the earlier phases left alive frozen out of
+             the garbage collector first:
              finite losses and grad norms, two flash forward launches
              per layer per step (one more under remat) and one backward,
              no other LM kernel; ms per step, tokens/s, card peak memory,
-             the last step under the profiler (busy share, top kernels);
+             the last step under the profiler (busy share, top kernels,
+             each backward pass's card time per step);
              last, a checkpoint resume on the card (smoke Minitron-4B at
              head width 64, 20 steps + resume to 30 against 30 straight).
 10. report — a ``kernels`` JSON line, the card's name and power limit,
@@ -119,6 +126,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import inspect
 import json
 import math
@@ -1624,8 +1632,10 @@ def card_vs_cpu(name, cfg, seed) -> dict:
 
 
 #: the port's own kernels by the name the profiler gives them
+#: the backward's three passes, in launch order
+BWD_PASSES = ("delta_kernel", "dkdv_kernel", "dq_kernel")
 PORT_KERNELS = ("window_kernel", "fa_kernel", "wkv6_kernel", "scan_kernel",
-                "stats_kernel", "dkdv_kernel", "dq_kernel")
+                *BWD_PASSES)
 
 
 def _on_card(prof) -> tuple[float, int, list, dict]:
@@ -1820,37 +1830,49 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR, TRAIN_SEED = 8, 2048, 8, 3e-4, 0
 #: the AdamW update within the 2-layer serving bound (CARD_CPU_REL_L2;
 #: bf16 products round at other places in cuBLAS and the CPU's kernels)
 TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 1, 256
+#: the forward's log-sum-exp (base 2, fp32) against the plain version's:
+#: both from fp32 scores of the same bf16 inputs, summed in other orders
+#: (values ~10, so a few fp32 ulps)
+FLASH_LSE_TOL = 1e-4
 #: resume on the card: the JAX package's own case (tests/test_system.py,
 #: test_training_checkpoint_resume_identical) on smoke Minitron-4B with
 #: its head width set to 64, the kernels' narrowest; its tolerance
 RESUME_RTOL = 1e-4
 
 
-def bwd_bound(B, S, H, Hkv, hd, es):
+#: the bf16 backward kernel's products per (query, key <= query) pair:
+#: s, dP, dV and dK as hi + lo (P and dS as two bf16 terms each) in the
+#: dK/dV pass; s, dP and dQ as hi + lo in the dQ pass
+BWD_SPLIT_PRODUCTS = 10
+
+
+def bwd_bound(B, S, H, Hkv, hd, es, products=5):
     """Least time (ms) for the causal attention backward, and what bounds
     it: q, k, v, o, dO read and dq, dk, dv written once over memory
-    bandwidth, against its five products (s, dP, dV, dQ, dK: 2 * hd flops
-    each per (query, key <= query) pair) at the bf16 tensor-core peak."""
+    bandwidth, against ``products`` products of 2 * hd flops per (query,
+    key <= query) pair at the bf16 tensor-core peak: five (s, dP, dV, dQ,
+    dK) for the bound, `BWD_SPLIT_PRODUCTS` for the split floor."""
     nbytes = 4 * B * S * (H + Hkv) * hd * es
-    flops = 5 * 2.0 * hd * B * H * S * (S + 1) / 2
+    flops = products * 2.0 * hd * B * H * S * (S + 1) / 2
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def bwd_case(B, S, H, Hkv, hd, dtype, seed):
-    """The backward kernel against `attention_backward_plain` from the
-    forward kernel's output: each gradient within BACKWARD_TOL, a second
-    launch bit-identical; its card time, the plain version's, SDPA's
-    backward alone and the bound."""
+    """The backward kernel, fed the forward kernel's output and
+    log-sum-exp, against `attention_backward_plain` (a normalised softmax,
+    no log-sum-exp): each gradient within BACKWARD_TOL, a second launch
+    bit-identical; its card time, the plain version's, SDPA's backward
+    alone, the bound and the split floor."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, do = (torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
              for _ in range(2))
     k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
             for _ in range(2))
-    o = flash_attention_call(q, k, v)
-    got = flash_attention_backward_call(q, k, v, o, do)
-    again = flash_attention_backward_call(q, k, v, o, do)
+    o, lse = flash_attention_call(q, k, v, return_lse=True)
+    got = flash_attention_backward_call(q, k, v, o, do, lse)
+    again = flash_attention_backward_call(q, k, v, o, do, lse)
     want = attention_backward_plain(q, k, v, o, do)
     torch.cuda.synchronize()
     what = f"flash backward at B={B} S={S} H={H}/{Hkv} hd={hd} {dtype}"
@@ -1862,7 +1884,7 @@ def bwd_case(B, S, H, Hkv, hd, dtype, seed):
     check(all(torch.equal(g, a) for g, a in zip(got, again)),
           f"{what}: two launches differ")
     del got, again, want
-    ms = device_ms(lambda: flash_attention_backward_call(q, k, v, o, do), reps=3)
+    ms = device_ms(lambda: flash_attention_backward_call(q, k, v, o, do, lse), reps=3)
     plain_ms = device_ms(lambda: attention_backward_plain(q, k, v, o, do), reps=1)
     # SDPA's backward alone: its forward runs once, outside the timing
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -1875,13 +1897,35 @@ def bwd_case(B, S, H, Hkv, hd, dtype, seed):
     del out, qt, kt, vt
     torch.cuda.empty_cache()
     bound_ms, bound_by = bwd_bound(B, S, H, Hkv, hd, q.element_size())
+    split_ms, _ = bwd_bound(B, S, H, Hkv, hd, q.element_size(), BWD_SPLIT_PRODUCTS)
     return {
         "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
         "dtype": str(dtype).replace("torch.", ""),
         "max_abs_err": diff, "tol_ratio": max(ratios), "ms": ms,
         "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms": bound_ms, "bound_by": bound_by, "split_floor_ms": split_ms,
     }
+
+
+def forward_lse_case(B, S, H, Hkv, hd, seed) -> dict:
+    """The bf16 forward kernel with and without its log-sum-exp: ``o``
+    the same bits both ways, lse against the plain version's within
+    `FLASH_LSE_TOL`, and the forward's card time both ways."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    o = flash_attention_call(q, k, v)
+    o_lse, lse = flash_attention_call(q, k, v, return_lse=True)
+    _, want = attention_plain(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    what = f"flash forward lse at B={B} S={S} H={H}/{Hkv} hd={hd}"
+    check(torch.equal(o, o_lse), f"{what}: o differs with and without lse")
+    err = (lse - want).abs().max().item()
+    check(err <= FLASH_LSE_TOL, f"{what}: lse max abs err {err:.3g} > {FLASH_LSE_TOL}")
+    ms = device_ms(lambda: flash_attention_call(q, k, v), reps=10)
+    lse_ms = device_ms(lambda: flash_attention_call(q, k, v, return_lse=True), reps=10)
+    return {"ms": ms, "lse_ms": lse_ms, "lse_err": err}
 
 
 def _rel(a, b) -> float:
@@ -1943,6 +1987,25 @@ def train_card_vs_cpu(cfg, seed) -> dict:
 
 
 @contextlib.contextmanager
+def gc_pauses():
+    """The host time of every garbage collection inside, by generation:
+    yields a list that fills with (generation, ms)."""
+    seen, started = [], {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started["t"] = time.perf_counter()
+        elif "t" in started:
+            seen.append((info["generation"], (time.perf_counter() - started.pop("t")) * 1e3))
+
+    gc.callbacks.append(on_gc)
+    try:
+        yield seen
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
+@contextlib.contextmanager
 def train_step_metrics():
     """Every step's metrics (loss, grad norm, lr) of the `train_loop` runs
     inside, collected by wrapping the step function it builds."""
@@ -1981,13 +2044,25 @@ def train_main_path(cfg) -> dict:
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    # The earlier phases leave over a million objects alive in this
+    # process; a full collection during a step would scan them all (a
+    # stall a process that only trains never meets). Collect once, timed,
+    # then move the survivors out of the collector's reach.
+    tracked = len(gc.get_objects())
+    t_gc = time.perf_counter()
+    gc.collect()
+    full_gc_ms = (time.perf_counter() - t_gc) * 1e3
+    gc.freeze()
     reset_counts()  # the main path starts here
-    with train_step_metrics() as metrics:
+    with train_step_metrics() as metrics, gc_pauses() as pauses:
         t0 = time.perf_counter()
         losses = train_mod.train_loop(
             cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
             lr=TRAIN_LR, seed=TRAIN_SEED, log_every=1, on_step=on_step,
             device="cuda")
+    gc.unfreeze()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
     launched = dict(counts(),
                     flash_attention_backward=flash_attention_backward_call.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2021,6 +2096,13 @@ def train_main_path(cfg) -> dict:
           f"ms; steps 1-{TRAIN_STEPS - 2} {ms_step:.3f} ms per step "
           f"(each {[round(x * 1e3, 3) for x in step_s]}), {tokens_s:.1f} tokens/s; "
           f"card peak memory {peak_gb:.3f} GB")
+    print(f"[train] host: {tracked} objects tracked by the garbage collector "
+          f"before the main path, one full collection of them {full_gc_ms:.3f} ms, "
+          f"then frozen; {len(pauses)} collections in the main path "
+          f"took {sum(ms for _, ms in pauses):.3f} ms (longest "
+          f"{max((ms for _, ms in pauses), default=0.0):.3f} ms, generation-2 "
+          f"collections {sum(g == 2 for g, _ in pauses)}); allocator retries "
+          f"{retries}")
     print(f"[train] step {TRAIN_STEPS - 1} under the profiler: card busy "
           f"{card_us / 1e3:.3f} ms of {ms_step:.3f} ms ({busy * 100:.2f}%) in "
           f"{n_card} kernels and copies; top:")
@@ -2029,9 +2111,14 @@ def train_main_path(cfg) -> dict:
     for kernel, (t_us, cnt) in own.items():
         print(f"[train]   port kernel {kernel}: {t_us / 1e3:.3f} ms in {cnt} "
               f"({t_us / card_us * 100:.2f}% of the card time)")
+    passes = {k: own.get(k, (0.0, 0)) for k in BWD_PASSES}
+    print("[train] backward passes in the profiled step: " + "; ".join(
+        f"{k} {t_us / 1e3:.3f} ms in {cnt}" for k, (t_us, cnt) in passes.items())
+        + f"; together {sum(t for t, _ in passes.values()) / 1e3:.3f} ms")
     return {"launches": launched, "losses": losses, "grad_norms": gnorms,
             "ms_per_step": ms_step, "tokens_per_s": tokens_s, "peak_gb": peak_gb,
-            "busy_share": busy}
+            "busy_share": busy,
+            "backward_ms": {k: t_us / 1e3 for k, (t_us, _) in passes.items()}}
 
 
 def train_resume() -> dict:
@@ -2065,12 +2152,21 @@ def phase_train() -> tuple[dict, dict]:
     t0 = time.perf_counter()
     cfg = load_config(TRAIN_MODEL)
     nemo = load_config("mistral_nemo_12b")
+    fwd = forward_lse_case(LM_BATCH, LM_PROMPT, nemo.n_heads, nemo.n_kv_heads,
+                           nemo.head_dim, 29)
+    print(f"[train] flash forward at B={LM_BATCH} S={LM_PROMPT} "
+          f"H={nemo.n_heads}/{nemo.n_kv_heads} hd={nemo.head_dim} bf16: "
+          f"{fwd['ms']:.5f} ms without lse, {fwd['lse_ms']:.5f} ms with lse "
+          "(card time, CUDA-graph replay); o the same bits both ways; lse vs "
+          f"plain max abs err {fwd['lse_err']:.3g} (<= {FLASH_LSE_TOL})")
     print("[train] flash backward B S H/Hkv hd dtype | ms plain_ms sdpa_bwd_ms "
-          "bound_ms bound_by | max_abs_err err/limit  (ms: card time, CUDA-graph "
-          "replay; sdpa_bwd_ms: torch.autograd.grad through "
-          "scaled_dot_product_attention, its forward outside, CUDA events around "
-          "back-to-back calls; bound: five products at the bf16 tensor-core peak; "
-          "limit per element rtol|want| + floor rms(want), (rtol, floor) "
+          "bound_ms bound_by split_floor_ms | max_abs_err err/limit  (ms: card "
+          "time, CUDA-graph replay, the forward's lse given; sdpa_bwd_ms: "
+          "torch.autograd.grad through scaled_dot_product_attention, its forward "
+          "outside, CUDA events around back-to-back calls; bound: five products "
+          "at the bf16 tensor-core peak; split_floor_ms: "
+          f"{BWD_SPLIT_PRODUCTS} products, P and dS as bf16 hi + lo; limit per "
+          "element rtol|want| + floor rms(want), (rtol, floor) "
           f"{BACKWARD_TOL[torch.bfloat16]} bf16, {BACKWARD_TOL[torch.float32]} fp32)")
     rows = []
     for seed, (B, S, H, Hkv, hd, dtype) in enumerate((
@@ -2085,14 +2181,14 @@ def phase_train() -> tuple[dict, dict]:
         rows.append(row)
         print(f"[train] flash backward {B} {S} {H}/{Hkv} {hd} {row['dtype']} | "
               f"{row['ms']:.5f} {row['plain_ms']:.5f} {row['library_ms']:.5f} "
-              f"{row['bound_ms']:.5f} {row['bound_by']} | "
+              f"{row['bound_ms']:.5f} {row['bound_by']} {row['split_floor_ms']:.5f} | "
               f"{row['max_abs_err']:.3g} {row['tol_ratio']:.3g}; bit-identical "
               "across launches")
     cpu = train_card_vs_cpu(cfg, TRAIN_SEED + 1)
     main = train_main_path(cfg)
     resume = train_resume()
     print(f"[train] phase: {time.perf_counter() - t0:.3f} s")
-    return rows[0], dict(main, card_vs_cpu=cpu, resume=resume)
+    return rows[0], dict(main, card_vs_cpu=cpu, resume=resume, forward_lse=fwd)
 
 
 def card_line() -> str:
@@ -2111,6 +2207,7 @@ PREVIOUS_MS = {
     "flash_attention": (2.56539, "the fp32-FMA kernel, PR 13"),
     "rwkv6_scan": (0.71597, "the step kernel before its TMA redesign"),
     "mamba_scan": (0.47799, "the one-channel-per-thread kernel before its redesign"),
+    "flash_attention_backward": (22.83953, "the SIMT fp32-FMA kernel of PR 24"),
 }
 
 
@@ -2184,11 +2281,12 @@ def main() -> int:
     scan["shape"] = {k: scan_row[k] for k in ("B", "S", "di", "ns", "dtype")}
     bwd = kernel_entry(
         "flash_attention_backward", "src/repro_torch/csrc/flash_attention_bwd.cu",
-        "src/repro/models/layers.py:140", "fma",
+        "src/repro/models/layers.py:140", "wgmma",
         train["launches"]["flash_attention_backward"], bwd_row,
     )
-    bwd["shape"] = {k: bwd_row[k] for k in ("B", "S", "H", "Hkv", "hd", "dtype")}
-    print(previous_line([pmm, flash, wkv, scan]))
+    bwd.update(split_floor_ms=bwd_row["split_floor_ms"],
+               shape={k: bwd_row[k] for k in ("B", "S", "H", "Hkv", "hd", "dtype")})
+    print(previous_line([pmm, flash, wkv, scan, bwd]))
     print(json.dumps({"kernels": [pmm, flash, wkv, scan, bwd]}))
     print(card_line())
     print(json.dumps({

@@ -4,8 +4,9 @@
 Each ``csrc/<name>.cu`` exports a plain C interface and compiles into
 its own shared library for ``sm_90a`` (Hopper; the ``a`` keeps
 ``wgmma`` and ``setmaxnreg`` available). Libraries go to ``build/``
-beside this file, named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused. Nothing is
+beside this file, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is reused. Nothing is
 built when the package is imported: a kernel's wrapper builds its
 library at first launch, and `build` compiles several sources at once,
 one ``nvcc`` each, all started together. ``nvcc`` is taken from
@@ -49,9 +50,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` is built."""
+    """Where the library of ``csrc/<name>.cu`` is built: named by the
+    source, the shared headers (``csrc/*.cuh``) and the flags."""
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        (CSRC_DIR / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC_DIR / f"{name}.cu").read_bytes() + headers
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -11,7 +11,9 @@ transposed on either side of the call.
 
 `flash_attention_backward_call` is its gradient: the kernels of
 ``repro_torch/csrc/flash_attention_bwd.cu`` for CUDA tensors, the plain
-`ref.attention_backward_plain` for CPU tensors, with the same rule.
+`ref.attention_backward_plain` for CPU tensors, with the same rule. It
+takes the log-sum-exp that the forward returns with ``return_lse=True``
+and recomputes no softmax statistics.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ _ALIGN = 16
 def _kernel(dtype: torch.dtype):
     fn = getattr(load_library("flash_attention"), _SYMBOLS[dtype])
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        *[ctypes.c_void_p] * 5,  # q k v o lse (lse may be null)
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B S H Hkv
         ctypes.c_int, ctypes.c_int,  # hd, causal
         ctypes.c_void_p,  # stream
@@ -55,7 +57,7 @@ def _kernel(dtype: torch.dtype):
 def _backward_kernel(dtype: torch.dtype):
     fn = getattr(load_library("flash_attention_bwd"), _BWD_SYMBOLS[dtype])
     fn.argtypes = [
-        *[ctypes.c_void_p] * 10,  # q k v o do dq dk dv lse delta
+        *[ctypes.c_void_p] * 10,  # q k v o do lse dq dk dv delta
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B S H Hkv
         ctypes.c_int, ctypes.c_int,  # hd, causal
         ctypes.c_void_p,  # stream
@@ -103,19 +105,23 @@ def _check_cuda(tensors) -> None:
         raise ValueError(f"grid too large for B*H={B * H}, S={S}")
 
 
-def flash_attention_call(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def flash_attention_call(q, k, v, *, causal: bool = True,
+                         return_lse: bool = False):
     """softmax(q kᵀ · hd^-½) v per head, causal by default.
 
     q: (B, S, H, hd); k, v: (B, S, Hkv, hd) with H a multiple of Hkv;
     all float32 or all bfloat16, on one device. Returns (B, S, H, hd) in
-    q's dtype. On CUDA the tensors must be contiguous (bf16 ones also
-    16-byte aligned) and hd 64 or 128; the kernel runs on the current stream and each launch adds one to
-    ``flash_attention_call.launches``. CPU tensors take the plain version
-    and count nothing.
+    q's dtype; with ``return_lse``, ``(out, lse)``, lse (B, H, S) fp32
+    each row's log-sum-exp of the scaled scores in base 2 (what
+    `flash_attention_backward_call` takes). ``out`` is the same bits
+    either way. On CUDA the tensors must be contiguous (bf16 ones also
+    16-byte aligned) and hd 64 or 128; the kernel runs on the current
+    stream and each launch adds one to ``flash_attention_call.launches``.
+    CPU tensors take the plain version and count nothing.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal)
+        return attention_plain(q, k, v, causal=causal, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check_cuda((q, k, v))
@@ -125,35 +131,40 @@ def flash_attention_call(q, k, v, *, causal: bool = True) -> torch.Tensor:
         raise ValueError(f"bf16 q, k and v must be {_ALIGN}-byte aligned")
     B, S, H, hd = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     fn = _kernel(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, S, H, k.shape[2], hd, int(bool(causal)), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention_call.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 #: kernel launches since the count was last set to 0 (CUDA path only)
 flash_attention_call.launches = 0
 
 
-def flash_attention_backward_call(q, k, v, o, do, *, causal: bool = True):
-    """Gradients (dq, dk, dv) of ``o = flash_attention_call(q, k, v)``
-    for the cotangent ``do`` of o.
+def flash_attention_backward_call(q, k, v, o, do, lse, *, causal: bool = True):
+    """Gradients (dq, dk, dv) of ``o, lse = flash_attention_call(q, k, v,
+    return_lse=True)`` for the cotangent ``do`` of o.
 
     q, o, do: (B, S, H, hd); k, v: (B, S, Hkv, hd); all float32 or all
-    bfloat16, on one device. Returns dq like q and dk, dv like k, in q's
-    dtype; dk and dv of a KV head sum over its group's query heads. On
-    CUDA every tensor must be contiguous and hd 64 or 128; the kernels
-    run on the current stream, write each gradient element once (no
-    atomics, so results are bit-identical from launch to launch), and a
-    call adds one to ``flash_attention_backward_call.launches``. CPU
-    tensors take the plain version and count nothing.
+    bfloat16, on one device; lse: the forward's (B, H, S) fp32
+    log-sum-exp, from which P is rebuilt. Returns dq like q and dk, dv
+    like k, in q's dtype; dk and dv of a KV head sum over its group's
+    query heads. On CUDA every tensor must be contiguous, q, k, v, o and
+    do 16-byte aligned, and hd 64 or 128; the kernels run on the current
+    stream, write each gradient element once (no atomics, so results are
+    bit-identical from launch to launch), and a call adds one to
+    ``flash_attention_backward_call.launches``. CPU tensors take the
+    plain version and count nothing.
     """
     _check(q, k, v)
     for name, t in (("o", o), ("do", do)):
@@ -164,23 +175,28 @@ def flash_attention_backward_call(q, k, v, o, do, *, causal: bool = True):
             )
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    B, S, H, hd = q.shape
+    if tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32:
+        raise ValueError(
+            f"lse must be float32 {(B, H, S)}, got {lse.dtype} {tuple(lse.shape)}")
+    if lse.device != q.device:
+        raise ValueError(f"lse on {lse.device}, q on {q.device}")
     if q.device.type == "cpu":
-        return attention_backward_plain(q, k, v, o, do, causal=causal)
+        return attention_backward_plain(q, k, v, o, do, lse, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    _check_cuda((q, k, v, o, do))
-    B, S, H, hd = q.shape
+    _check_cuda((q, k, v, o, do, lse))
+    if any(t.data_ptr() % _ALIGN for t in (q, k, v, o, do)):
+        raise ValueError(f"q, k, v, o and do must be {_ALIGN}-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # per (b, h, row) log-sum-exp and rowsum(dO * O), fp32
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    delta = torch.empty_like(lse)  # rowsum(dO * O) per (b, h, row), fp32
     fn = _backward_kernel(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(),
             B, S, H, k.shape[2], hd, int(bool(causal)), stream,
         )
     if err != 0:

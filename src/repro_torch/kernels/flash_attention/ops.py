@@ -11,13 +11,13 @@ from repro_torch.kernels.flash_attention.kernel import (
 
 class _FlashAttention(torch.autograd.Function):
     """The forward kernel, with the backward kernel as its gradient. The
-    forward's q, k, v and output are saved; under activation
+    forward's q, k, v, output and log-sum-exp are saved; under activation
     checkpointing they are dropped and the forward runs again."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        o = flash_attention_call(q, k, v, causal=causal)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = flash_attention_call(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o
 
@@ -25,9 +25,9 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         # the CUDA kernels take contiguous operands only; the cotangent
         # arrives in whatever layout the next op's gradient left it
-        q, k, v, o = (t.contiguous() for t in ctx.saved_tensors)
+        q, k, v, o, lse = (t.contiguous() for t in ctx.saved_tensors)
         dq, dk, dv = flash_attention_backward_call(
-            q, k, v, o, do.contiguous(), causal=ctx.causal
+            q, k, v, o, do.contiguous(), lse, causal=ctx.causal
         )
         return dq, dk, dv, None
 
@@ -41,9 +41,10 @@ def flash_attention(q, k, v, *, causal: bool = True):
     wrapper shrinks its blocks to a divisor of S instead).
 
     Differentiable: where grad is enabled and an input requires it, the
-    call records `flash_attention_backward_call` as its gradient. With
-    grad off (serving, under ``torch.inference_mode``) it is the forward
-    kernel alone.
+    forward also writes each row's log-sum-exp and the call records
+    `flash_attention_backward_call` as its gradient. With grad off
+    (serving, under ``torch.inference_mode``) it is the forward kernel
+    alone, with no log-sum-exp.
     """
     if torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad

@@ -13,7 +13,11 @@ the plain version both keep fp32 statistics and differ in summation
 order and the online rescale; each output element is held to its own
 size, |got - want| <= rtol |want| + floor rms(want), with (rtol, floor)
 from ``flash_attention.ref.KERNEL_TOL``: (1e-5, 1e-4) for fp32 and
-(2^-7, 1e-3) for bf16, one bf16 ulp of each value.
+(2^-7, 1e-3) for bf16, one bf16 ulp of each value. Its log-sum-exp is
+fp32 from the same fp32 scores as the plain version's (1e-4 absolute, a
+few ulps of values ~10), and the output is the same bits with and
+without it. The backward, fed that log-sum-exp, is held the same way to
+``BACKWARD_TOL``, and bit for bit across launches.
 WKV-6: the kernel's exact step-by-step recurrence against the plain
 chunked form, whose ``k / prod(w)`` rescale loses a few more digits
 (1e-4 of the max, as the reference's own kernel test); where the
@@ -253,14 +257,15 @@ def test_flash_kernel_refuses_other_head_widths(card):
 )
 def test_flash_backward_kernel_matches_plain(card, dtype, B, S, H, Hkv, hd, causal):
     """dq, dk, dv against the plain gradient formulas, from the forward
-    kernel's own output; a second launch gives the same bits."""
+    kernel's own output and log-sum-exp; a second launch gives the same
+    bits."""
     q, k, v = _qkv(card, B, S, H, Hkv, hd, dtype, S + H + 1)
     do = torch.randn(q.shape, generator=torch.Generator(device=card).manual_seed(S),
                      device=card).to(dtype)
-    o = flash_attention_call(q, k, v, causal=causal)
+    o, lse = flash_attention_call(q, k, v, causal=causal, return_lse=True)
     before = flash_attention_backward_call.launches
-    got = flash_attention_backward_call(q, k, v, o, do, causal=causal)
-    again = flash_attention_backward_call(q, k, v, o, do, causal=causal)
+    got = flash_attention_backward_call(q, k, v, o, do, lse, causal=causal)
+    again = flash_attention_backward_call(q, k, v, o, do, lse, causal=causal)
     assert flash_attention_backward_call.launches == before + 2
     want = attention_backward_plain(q, k, v, o, do, causal=causal)
     torch.cuda.synchronize()
@@ -276,10 +281,10 @@ def test_flash_backward_ragged_tile_never_reads_the_next_batch(card, S, hd):
     """Batch 1 all NaN: batch 0's ragged last tiles must not read it."""
     q, k, v = _qkv(card, 2, S, 8, 2, hd, torch.bfloat16, S + hd + 2)
     do = torch.randn_like(q)
-    o = flash_attention_call(q, k, v)
-    for t in (q, k, v, o, do):
+    o, lse = flash_attention_call(q, k, v, return_lse=True)
+    for t in (q, k, v, o, do, lse):
         t[1] = float("nan")
-    got = flash_attention_backward_call(q, k, v, o, do)
+    got = flash_attention_backward_call(q, k, v, o, do, lse)
     want = attention_backward_plain(q[:1], k[:1], v[:1], o[:1], do[:1])
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -290,16 +295,81 @@ def test_flash_backward_ragged_tile_never_reads_the_next_batch(card, S, hd):
 @pytest.mark.cuda
 def test_flash_backward_refuses_what_it_does_not_take(card):
     q, k, v = _qkv(card, 1, 64, 2, 2, 96, torch.bfloat16, 0)
+    lse = torch.zeros((1, 2, 64), device=card)
     before = flash_attention_backward_call.launches
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention_backward_call(q, k, v, q, q)
+        flash_attention_backward_call(q, k, v, q, q, lse)
     q, k, v = _qkv(card, 1, 64, 2, 2, 64, torch.bfloat16, 0)
     strided = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16, device=card)[..., :64]
     with pytest.raises(ValueError, match="contiguous"):
-        flash_attention_backward_call(q, k, v, q, strided)
+        flash_attention_backward_call(q, k, v, q, strided, lse)
     with pytest.raises(ValueError, match="must match q"):
-        flash_attention_backward_call(q, k, v, q, q.float())
+        flash_attention_backward_call(q, k, v, q, q.float(), lse)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_backward_call(q, k, v, q, q, lse[:, :, :32])
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_backward_call(q, k, v, q, q, lse.bfloat16())
+    shifted = torch.zeros(q.numel() + 2, dtype=torch.bfloat16, device=card)[2:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_backward_call(q, k, v, shifted, q, lse)
     assert flash_attention_backward_call.launches == before
+
+
+#: the forward's log-sum-exp against the plain version's: fp32 from the
+#: same fp32 scores summed in other orders, values ~10 (a few fp32 ulps)
+LSE_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,H,Hkv,hd,causal",
+    [(2, 256, 32, 8, 128, True), (2, 77, 8, 1, 128, True),
+     (1, 1000, 4, 4, 64, True), (1, 200, 4, 2, 64, False)],
+)
+def test_flash_forward_lse_matches_plain(card, dtype, B, S, H, Hkv, hd, causal):
+    """The forward kernel's log-sum-exp (base 2) against the plain
+    version's, and its output the same bits as without it."""
+    q, k, v = _qkv(card, B, S, H, Hkv, hd, dtype, S + H + 3)
+    before = flash_attention_call.launches
+    o, lse = flash_attention_call(q, k, v, causal=causal, return_lse=True)
+    assert flash_attention_call.launches == before + 1
+    _, want = attention_plain(q, k, v, causal=causal, return_lse=True)
+    plain_o = flash_attention_call(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    assert (lse - want).abs().max().item() <= LSE_TOL
+    assert torch.equal(o, plain_o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_forward_output_is_the_same_bits_with_and_without_lse(card, hd):
+    """Serving runs the forward with no lse buffer, training with one:
+    the output must not depend on it, at a prompt length of the LM path."""
+    q, k, v = _qkv(card, 2, 2048, 32, 8, hd, torch.bfloat16, hd)
+    without = flash_attention_call(q, k, v)
+    with_lse, _ = flash_attention_call(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(without, with_lse)
+
+
+@pytest.mark.cuda
+def test_flash_backward_at_nemo_length_and_gqa_is_within_bound_and_deterministic(card):
+    """S 2048, hd 128, 32 query heads over 8 KV heads (Mistral-NeMo's
+    attention): every gradient within ``BACKWARD_TOL`` and two launches
+    the same bits."""
+    q, k, v = _qkv(card, 1, 2048, 32, 8, 128, torch.bfloat16, 2048)
+    do = torch.randn(q.shape, generator=torch.Generator(device=card).manual_seed(7),
+                     device=card).bfloat16()
+    o, lse = flash_attention_call(q, k, v, return_lse=True)
+    got = flash_attention_backward_call(q, k, v, o, do, lse)
+    again = flash_attention_backward_call(q, k, v, o, do, lse)
+    want = attention_backward_plain(q, k, v, o, do)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert tol_ratio(g, w, BACKWARD_TOL) <= 1.0
 
 
 @pytest.mark.cuda

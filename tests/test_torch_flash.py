@@ -12,8 +12,16 @@ rms(want), the measure the CUDA kernel is held to on the card
 (``flash_attention.ref.tol_ratio``). In float32 both sides compute the
 same fp32 softmax in another summation order: (1e-5, 1e-4). In bfloat16
 both keep fp32 statistics and round the output to bf16 once, so they
-differ by at most one bf16 ulp of each value: (2^-7, 1e-3).
+differ by at most one bf16 ulp of each value: (2^-7, 1e-3). The
+log-sum-exp the forward hands to the backward is fp32 on both sides,
+from the same fp32 scores summed in another order: 1e-5.
+
+The bf16 backward kernel's arithmetic (P from the forward's log-sum-exp,
+P and dS fed to the tensor cores as bf16 hi + lo, fp32 sums over 64-row
+tiles) is emulated here, where no card is, and held to the bound the
+card holds the kernel to (``BACKWARD_TOL``).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,8 +30,18 @@ import torch
 from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.kernel import flash_attention_call
-from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_plain, tol_ratio
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_backward_call,
+    flash_attention_call,
+)
+from repro_torch.kernels.flash_attention.ref import (
+    BACKWARD_TOL,
+    LOG2E,
+    NEG_INF,
+    attention_backward_plain,
+    attention_plain,
+    tol_ratio,
+)
 
 torch.set_num_threads(1)
 
@@ -172,3 +190,166 @@ def test_cpu_wrapper_counts_nothing_and_checks_shapes():
         flash_attention_call(tq, tk[:, :8], tv)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_attention_call(tq.double(), tk.double(), tv.double())
+
+
+# ---------------------------------------------------------------------------
+# the log-sum-exp the forward hands to the backward
+# ---------------------------------------------------------------------------
+#: the forward's lse (fp32) against the JAX reference's, from the same
+#: fp32 scores summed in another order
+LSE_TOL = 1e-5
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,H,Hkv", [(72, 4, 4), (100, 8, 2)])
+def test_plain_lse_matches_jax_logsumexp(dtype, causal, S, H, Hkv):
+    """The lse the CPU path of `flash_attention_call` returns is
+    ``jax.nn.logsumexp`` of the JAX reference's scaled, masked scores
+    (``attention_ref``'s), in base 2; its output is the same bits as
+    without lse."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(2, S, H, Hkv, 32, dtype, seed=S + 7)
+    got_o, got = flash_attention_call(tq, tk, tv, causal=causal, return_lse=True)
+    assert got.dtype == torch.float32 and got.shape == (2, H, S)
+    assert torch.equal(got_o, flash_attention_call(tq, tk, tv, causal=causal))
+    kx = jnp.repeat(jk, H // Hkv, axis=2).astype(jnp.float32)
+    s = jnp.einsum("bqhd,bshd->bhqs", jq.astype(jnp.float32), kx) * (32**-0.5)
+    if causal:
+        s = jnp.where(jnp.tril(jnp.ones((S, S), bool))[None, None], s, NEG_INF)
+    want = np.asarray(jax.nn.logsumexp(s, axis=-1)) * LOG2E
+    np.testing.assert_allclose(got.numpy(), want, rtol=LSE_TOL, atol=LSE_TOL)
+
+
+def test_backward_wrapper_takes_the_forward_lse():
+    """On the CPU the backward wrapper runs the plain gradient with P
+    rebuilt from the lse it is given: the same gradients as the
+    normalised softmax, within fp32 rounding; an lse of the wrong shape
+    or type is refused."""
+    (_, tq), (_, tk), (_, tv) = _qkv(1, 50, 4, 2, 16, "float32", seed=9)
+    do = _qkv(1, 50, 4, 2, 16, "float32", seed=19)[0][1]
+    o, lse = flash_attention_call(tq, tk, tv, return_lse=True)
+    got = flash_attention_backward_call(tq, tk, tv, o, do, lse)
+    want = attention_backward_plain(tq, tk, tv, o, do)
+    for g, w in zip(got, want):
+        assert tol_ratio(g, w, BACKWARD_TOL) <= 1.0
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_backward_call(tq, tk, tv, o, do, lse[:, :2])
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_backward_call(tq, tk, tv, o, do, lse.double())
+
+
+# ---------------------------------------------------------------------------
+# the bf16 backward kernel's numerics, tile by tile
+# ---------------------------------------------------------------------------
+def _feed(x, split):
+    """An fp32 operand as the kernel feeds it to the tensor cores: fp32
+    (``None``), two bf16 terms hi = bf16(x) and lo = bf16(x - hi) whose
+    products are summed in fp32 ("hi_lo"), or one bf16 term ("bf16").
+    Returned as the list of terms, each exact in fp32."""
+    if split is None:
+        return [x]
+    hi = x.bfloat16().float()
+    return [hi, (x - hi).bfloat16().float()] if split == "hi_lo" else [hi]
+
+
+def _mm(a, b, split):
+    """a b with a fed as `_feed` says and fp32 sums."""
+    return sum(t @ b for t in _feed(a, split))
+
+
+def _forward_lse(q, k, block=64):
+    """Each row's log-sum-exp in base 2 as the bf16 forward kernel keeps
+    it: a running max m in log2 units and a sum l over 64-key blocks up
+    to the diagonal, lse = m + log2(l). q: (S, hd), k: (S, hd) fp32."""
+    S, hd = q.shape
+    sl2 = LOG2E * hd**-0.5
+    lse = torch.empty(S)
+    for q0 in range(0, S, block):
+        rows = torch.arange(q0, min(q0 + block, S))[:, None]
+        m = torch.full((len(rows),), NEG_INF)
+        l = torch.zeros(len(rows))
+        for k0 in range(0, q0 + len(rows), block):
+            s = q[q0:q0 + block] @ k[k0:k0 + block].T
+            cols = torch.arange(k0, k0 + s.shape[1])[None]
+            s = s.masked_fill(cols > rows, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1) * sl2)
+            p = torch.exp2(s * sl2 - m_new[:, None])
+            l = torch.exp2(m - m_new) * l + p.sum(-1)
+            m = m_new
+        lse[q0:q0 + block] = m + torch.log2(l)
+    return lse
+
+
+def _tiled_backward(q, k, v, o, do, *, p_split, ds_split, block=64):
+    """Causal GQA attention's (dq, dk, dv) in the bf16 kernel's order:
+    the dK/dV pass walks, per 64-key tile, the group's heads and the
+    64-query tiles at or below the diagonal; the dQ pass walks, per
+    64-query tile, the key tiles up to it. P^T and dS^T are rebuilt from
+    the forward's lse and D = rowsum(dO O), masked, and fed to their
+    products as ``p_split`` / ``ds_split`` say (`_feed`); s and dP are
+    exact products of the bf16 inputs; every sum is fp32; each gradient
+    is rounded once."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    group = H // Hkv
+    sl2, scale = LOG2E * hd**-0.5, hd**-0.5
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    dq, dk, dv = torch.zeros(qf.shape), torch.zeros(kf.shape), torch.zeros(vf.shape)
+    for b in range(B):
+        for kvh in range(Hkv):
+            heads = range(kvh * group, (kvh + 1) * group)
+            lse = {h: _forward_lse(qf[b, :, h], kf[b, :, kvh]) for h in heads}
+            dd = {h: (dof[b, :, h] * of[b, :, h]).sum(-1) for h in heads}
+            kk, vv = kf[b, :, kvh], vf[b, :, kvh]
+            for k0 in range(0, S, block):
+                kt, vt = kk[k0:k0 + block], vv[k0:k0 + block]
+                keys = torch.arange(k0, k0 + len(kt))[:, None]
+                acc_k, acc_v = torch.zeros(kt.shape), torch.zeros(vt.shape)
+                for h in heads:
+                    for q0 in range(k0, S, block):
+                        qt, dot = qf[b, q0:q0 + block, h], dof[b, q0:q0 + block, h]
+                        queries = torch.arange(q0, q0 + len(qt))[None]
+                        st, dpt = kt @ qt.T, vt @ dot.T
+                        pt = torch.exp2(st * sl2 - lse[h][q0:q0 + block][None])
+                        dst = pt * (dpt - dd[h][q0:q0 + block][None])
+                        keep = keys <= queries
+                        pt, dst = pt * keep, dst * keep
+                        acc_v += _mm(pt, dot, p_split)
+                        acc_k += _mm(dst, qt, ds_split)
+                dk[b, k0:k0 + block, kvh] = acc_k * scale
+                dv[b, k0:k0 + block, kvh] = acc_v
+            for h in heads:
+                for q0 in range(0, S, block):
+                    qt, dot = qf[b, q0:q0 + block, h], dof[b, q0:q0 + block, h]
+                    rows = torch.arange(q0, q0 + len(qt))[:, None]
+                    acc = torch.zeros(qt.shape)
+                    for k0 in range(0, q0 + len(qt), block):
+                        kt, vt = kk[k0:k0 + block], vv[k0:k0 + block]
+                        cols = torch.arange(k0, k0 + len(kt))[None]
+                        p = torch.exp2((qt @ kt.T) * sl2 - lse[h][q0:q0 + block][:, None])
+                        ds = p * ((dot @ vt.T) - dd[h][q0:q0 + block][:, None])
+                        acc += _mm(ds * (cols <= rows), kt, ds_split)
+                    dq[b, q0:q0 + block, h] = acc * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def test_backward_split_meets_the_bound_and_single_bf16_p_or_ds_does_not():
+    """The bf16 backward kernel feeds P and dS to the tensor cores. With
+    each as hi + lo (two bf16 terms, one fp32 sum) all three gradients
+    stay within the kernel's bound (`BACKWARD_TOL`, one bf16 ulp of each
+    gradient) at a head width and sequence length of the training path;
+    with P rounded to bf16 once dv does not, and with dS rounded once dq
+    and dk do not: the bound is what forces both splits."""
+    (_, tq), (_, tk), (_, tv) = _qkv(1, 1024, 2, 1, 64, "bfloat16", seed=31)
+    do = _qkv(1, 1024, 2, 1, 64, "bfloat16", seed=41)[0][1]
+    o = attention_plain(tq, tk, tv)
+    want = attention_backward_plain(tq, tk, tv, o, do)
+
+    def ratios(p_split, ds_split):
+        got = _tiled_backward(tq, tk, tv, o, do, p_split=p_split, ds_split=ds_split)
+        return [tol_ratio(g, w, BACKWARD_TOL) for g, w in zip(got, want)]
+
+    assert max(ratios("hi_lo", "hi_lo")) <= 1.0
+    assert ratios("bf16", "hi_lo")[2] > 1.0  # dv
+    dq_r, dk_r, _ = ratios("hi_lo", "bf16")
+    assert dq_r > 1.0 and dk_r > 1.0

@@ -134,14 +134,17 @@ def test_plain_backward_matches_autograd_and_jax(B, S, H, Hkv, hd, causal):
     _, vjp = jax.vjp(lambda a, b, c: attention_ref(a, b, c, causal=causal),
                      *(jnp.asarray(a) for a in (q, k, v)))
     want_jax = vjp(jnp.asarray(do))
-    got = attention_backward_plain(qt.detach(), kt.detach(), vt.detach(),
-                                   o.detach(), torch.from_numpy(do),
-                                   causal=causal)
-    for g, wt, wj in zip(got, want_torch, want_jax):
-        assert g.dtype == torch.float32 and g.shape == wt.shape
-        scale = np.abs(_np(wj)).max()
-        assert np.abs(_np(g) - _np(wt)).max() <= GRAD_MAX_TOL * scale
-        assert np.abs(_np(g) - _np(wj)).max() <= GRAD_MAX_TOL * scale
+    args = (qt.detach(), kt.detach(), vt.detach(), o.detach(), torch.from_numpy(do))
+    # P as a normalised softmax, and rebuilt from the forward's lse as the
+    # kernels rebuild it
+    _, lse = attention_plain(*args[:3], causal=causal, return_lse=True)
+    for got in (attention_backward_plain(*args, causal=causal),
+                attention_backward_plain(*args, lse, causal=causal)):
+        for g, wt, wj in zip(got, want_torch, want_jax):
+            assert g.dtype == torch.float32 and g.shape == wt.shape
+            scale = np.abs(_np(wj)).max()
+            assert np.abs(_np(g) - _np(wt)).max() <= GRAD_MAX_TOL * scale
+            assert np.abs(_np(g) - _np(wj)).max() <= GRAD_MAX_TOL * scale
 
 
 def test_flash_attention_is_differentiable_through_the_plain_versions():
