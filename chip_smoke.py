@@ -29,7 +29,11 @@ Phases, each printing what it finds; any failure exits non-zero:
              count must equal the windows executed plus the warm-up.
 4. wall    — a short wall-clock run on the card under the PyTorch
              profiler (the card's busy time by kernel, and so its idle
-             share), then ``CostModel.calibrate`` with CUDA events.
+             share), then ``CostModel.calibrate``, which times each
+             window on the host clock through the sync after it, as the
+             serving loop pays; beside each calibrated WCET the same
+             window's CUDA-event time around its launch, and the card's
+             own time (CUDA-graph replay) as its share of the WCET.
 5. gateway — the port's DSE picks the designs of steady_city (checked
              against the JAX package's pick), rush_hour, overload_2x,
              av_stack and copilot_decode, printing each search's own
@@ -66,7 +70,23 @@ Phases, each printing what it finds; any failure exits non-zero:
              bundle, its window launches the windows plus each server's
              warm-up, and every completed job's chained output of every
              shard is held against float64.
-7. lmkern  — the flash-attention, WKV-6 and selective-scan kernels
+7. conformance — the conformance harness (analysis >= DES >= runtime):
+             `run_conformance` over steady_city, rush_hour, sensor_fusion
+             and copilot_decode (StableLM-1.6B's 121-layer decode chain)
+             under FIFO and EDF at full width on the card, on the designs
+             `build` picks, every case ok, one window launch per window
+             executed, and the first three scenarios' cases equal to the
+             port's CPU run field for field; the sharded, shedding,
+             mode-switch, migration and DSE legs at the reference's own
+             settings and the harness's surrogate width (512); then
+             `run_wallclock_case` on steady_city and rush_hour at full
+             width and the reference's test settings (8 periods, 2
+             calibration reps, margin 8, one host-noise retry), and
+             steady_city in calibrated-admission mode (two retries),
+             under the profiler: per task the measured median and max
+             response beside the DES prediction and the bound. Prints a
+             ``conformance`` JSON line before the ``kernels`` line.
+8. lmkern  — the flash-attention, WKV-6 and selective-scan kernels
              against their plain versions at the LM path's shapes
              (Mistral-NeMo attention at S = 2048, a ragged S = 1000 and
              head width 64; RWKV-6's WKV at S = 2048 and a ragged S;
@@ -77,7 +97,7 @@ Phases, each printing what it finds; any failure exits non-zero:
              port never calls), bound and error; for WKV-6 and the scan
              also the bytes each must move over its card time, and its
              share of the bound.
-8. lm      — Mistral-NeMo-12B and RWKV-6-7B at full width and depth, then
+9. lm      — Mistral-NeMo-12B and RWKV-6-7B at full width and depth, then
              Jamba-v0.1-52B at full width and 16 of its 32 layers (all 32
              hold 102.9 GB in bf16, more than the card's 80 GB), one
              after the other, with random bf16 weights from a CUDA
@@ -91,7 +111,7 @@ Phases, each printing what it finds; any failure exits non-zero:
              against the port's own CPU run of the same weights and
              tokens, and the times under the PyTorch profiler with the
              card's busy share.
-9. train   — the flash forward's log-sum-exp at Mistral-NeMo's shape
+10. train  — the flash forward's log-sum-exp at Mistral-NeMo's shape
              (against the plain version's; the output the same bits with
              and without it; the forward's time both ways); the
              flash-attention backward kernel, fed that log-sum-exp,
@@ -117,8 +137,8 @@ Phases, each printing what it finds; any failure exits non-zero:
              each backward pass's card time per step);
              last, a checkpoint resume on the card (smoke Minitron-4B at
              head width 64, 20 steps + resume to 30 against 30 straight).
-10. report — a ``kernels`` JSON line, the card's name and power limit,
-             and the result line.
+11. report — a ``conformance`` and a ``kernels`` JSON line, the card's
+             name and power limit, and the result line.
 
 Exits with code 2 and prints no result when no CUDA card is visible.
 """
@@ -126,6 +146,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import inspect
 import json
@@ -146,7 +167,20 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import _build  # noqa: E402
 from repro_torch.configs import load_config, smoke_config  # noqa: E402
-from repro_torch.conformance import CostModel  # noqa: E402
+from repro_torch.conformance import (  # noqa: E402
+    DEFAULT_SCENARIOS,
+    POLICIES,
+    ConformanceConfig,
+    CostModel,
+    run_case,
+    run_conformance,
+    run_dse_case,
+    run_migration_case,
+    run_mode_switch_case,
+    run_sharded_case,
+    run_shedding_case,
+    run_wallclock_case,
+)
 from repro_torch.core.dse import DSEConfig, explore, provision  # noqa: E402
 from repro_torch.core.perfmodel.hardware import paper_platform  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
@@ -165,6 +199,7 @@ from repro_torch.kernels.mamba_scan.ref import mamba_scan_plain  # noqa: E402
 from repro_torch.kernels.preemptible_matmul import (  # noqa: E402
     grid_geometry,
     matmul_resumable,
+    matmul_window,
     pick_window,
 )
 from repro_torch.kernels.preemptible_matmul.kernel import (  # noqa: E402
@@ -647,12 +682,14 @@ def phase_wall() -> None:
         )
     cm = CostModel.calibrate(srv, reps=5)
     check(cm.device == torch.cuda.get_device_name(0), "calibration names its card")
-    for t, costs, wins in zip(tasks, cm.layer_costs, cm.layer_windows):
-        per_window = ", ".join(
-            f"{c / w * 1e6:.1f}" for c, w in zip(costs, wins)
-        )
-        print(f"[wall] calibrated on {cm.device}: {t.name} per-window WCET us "
-              f"[{per_window}]")
+    split = calibration_split(srv, cm, reps=5)
+    print(f"[wall] calibrated on {cm.device}, per window, us: WCET (host clock "
+          "through the sync) / CUDA events around the launch / the card alone "
+          "(graph replay) = its share of the WCET")
+    for t, rows in zip(tasks, split):
+        print(f"[wall]   {t.name}: " + ", ".join(
+            f"{r['wcet_us']:.1f}/{r['event_us']:.1f}/{r['card_us']:.1f}"
+            f"={r['card_share']:.1%}" for r in rows))
     # the measured model drives a virtual-clock run of the same tasks
     vclk = VirtualClock()
     rep_v = PharosServer(tasks, design.n_stages, policy="edf",
@@ -661,6 +698,43 @@ def phase_wall() -> None:
     check(rep_v.jobs_completed > 0, "calibrated model drives serving")
     print(f"[wall] calibrated virtual run: completed {rep_v.jobs_completed} "
           f"misses {sum(rep_v.deadline_misses.values())}")
+
+
+def calibration_split(srv, cm, reps) -> list[list[dict]]:
+    """Per task and layer of ``srv``, the window `CostModel.calibrate`
+    timed (the same chain of shapes) three ways, in µs: the calibrated
+    WCET (``cm``, host clock from before the launch to after the sync);
+    CUDA events around one launch (least of ``reps``; the start event
+    runs before the wrapper's host work); and the card alone
+    (`device_ms`, CUDA-graph replay), with its share of the WCET."""
+    out = []
+    for i, (x, t) in enumerate(zip(srv.inputs, srv.tasks)):
+        rows = []
+        for j, w in enumerate(t.weights):
+            M, (K, N) = x.shape[0], w.shape
+            window, _ = window_plan(M, N, K, block=srv.block, backend=srv.backend,
+                                    window_tiles=srv.window_tiles)
+            c = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+            run = functools.partial(matmul_window, x, w, c, 0, block=srv.block,
+                                    window_tiles=window)
+            run()
+            event_s = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                run()
+                end.record()
+                end.synchronize()
+                event_s.append(start.elapsed_time(end) / 1e3)
+            wcet = cm.window_cost(i, j)
+            card = device_ms(run) / 1e3
+            rows.append({"wcet_us": wcet * 1e6, "event_us": min(event_s) * 1e6,
+                         "card_us": card * 1e6, "card_share": card / wcet})
+            x = c
+        out.append(rows)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -898,7 +972,8 @@ def phase_gateway() -> dict:
     """The port's DSE picks the gateway scenarios' designs; rush_hour,
     overload_2x and av_stack, then copilot_decode's StableLM-1.6B decode
     tenant, are served at full width through the gateway; then a short
-    wall-clock run of rush_hour. Returns the window launches."""
+    wall-clock run of rush_hour. Returns the window launches and the
+    builds."""
     from repro_torch.core.perfmodel import exec_model
 
     built = {}
@@ -957,7 +1032,8 @@ def phase_gateway() -> dict:
     check(launched["flash_attention"] == launched["rwkv6_scan"]
           == launched["mamba_scan"] == 0, "the gateway launches no LM kernel")
     return {"launches": launched["preemptible_matmul_window"],
-            "lm_err": lm_err, "tf32_err": tf32_err, "peak_gb": peak}
+            "lm_err": lm_err, "tf32_err": tf32_err, "peak_gb": peak,
+            "built": built}
 
 
 # ---------------------------------------------------------------------------
@@ -1257,6 +1333,258 @@ def phase_sharded() -> int:
           f"{launched['preemptible_matmul_window']}, card peak memory {peak:.3f} GB "
           f"({held:.3f} GB of it held by earlier phases when it began)")
     return launched["preemptible_matmul_window"]
+
+
+# ---------------------------------------------------------------------------
+# The conformance harness: analysis >= DES >= runtime, every runtime leg's
+# windows through the kernel on the card
+# ---------------------------------------------------------------------------
+#: the other legs at the reference's own settings (tests/test_conformance.py,
+#: tests/test_modes.py, benchmarks/conformance_bench.py's quick run) and
+#: the harness's default surrogate width: (leg, scenario, policy, horizon
+#: in periods, keyword arguments)
+CONFORMANCE_LEGS = (
+    (run_sharded_case, "sharded_city", "edf", 24.0,
+     dict(shards=2, placement="least_loaded")),
+    (run_shedding_case, "overload_2x", "edf", 24.0,
+     dict(shed_policy="reject_newest")),
+    (run_mode_switch_case, "av_stack", "edf", 24.0, dict(action="degrade")),
+    (run_migration_case, "sharded_city", "edf", 20.0, dict(shards=2)),
+    (run_dse_case, "steady_city", "edf", 16.0, dict(shards=2, check_top=2)),
+)
+#: the sweep's scenarios whose cases are also run on the CPU and compared
+#: field for field (copilot_decode's 8.09 GB chain is not)
+CONFORMANCE_CPU = ("steady_city", "rush_hour", "sensor_fusion")
+#: the wall-clock leg at the reference's own test settings, full width,
+#: and its host-noise retries (tests/test_conformance.py): one, and two in
+#: calibrated-admission mode
+WALL_CFG = dict(max_dim=None, wall_horizon_periods=8.0, wall_reps=2,
+                wall_margin=8.0)
+WALL_CASES = (("steady_city", False, 1), ("rush_hour", False, 1),
+              ("steady_city", True, 2))
+
+
+class LaunchTally:
+    """Inside the block, every `PharosServer` built, the layers each
+    warm-up runs (one window each) and each calibration's probes (one
+    untimed and ``reps`` timed windows per layer): their card windows
+    are what the window kernel must have launched."""
+
+    def __init__(self):
+        self.servers, self.warmup, self.probes = [], 0, 0
+
+    def card_windows(self) -> int:
+        return sum(s.report.windows_executed for s in self.servers
+                   if s.device.type == "cuda") + self.warmup + self.probes
+
+    @contextlib.contextmanager
+    def counting(self):
+        init, warmup = PharosServer.__init__, PharosServer.warmup
+        calibrate = CostModel.__dict__["calibrate"]
+
+        def hooked_init(srv, *args, **kwargs):
+            init(srv, *args, **kwargs)
+            self.servers.append(srv)
+
+        def hooked_warmup(srv):
+            warmup(srv)
+            if srv.device.type == "cuda":
+                self.warmup += sum(len(t.weights) for t in srv.tasks)
+
+        def hooked_calibrate(cls, srv, *, reps=3, **kwargs):
+            if srv.device.type == "cuda":
+                self.probes += (reps + 1) * sum(len(t.weights) for t in srv.tasks)
+            return calibrate.__func__(cls, srv, reps=reps, **kwargs)
+
+        PharosServer.__init__, PharosServer.warmup = hooked_init, hooked_warmup
+        CostModel.calibrate = classmethod(hooked_calibrate)
+        try:
+            yield self
+        finally:
+            PharosServer.__init__, PharosServer.warmup = init, warmup
+            CostModel.calibrate = calibrate
+
+
+def model_fields(result) -> dict:
+    """``dataclasses.asdict(result)`` with every nested ``wall_seconds``
+    (the host time a case took, not a model number) set to zero."""
+    def strip(x):
+        if isinstance(x, dict):
+            return {k: 0.0 if k == "wall_seconds" else strip(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(strip(v) for v in x)
+        return x
+    return strip(dataclasses.asdict(result))
+
+
+def conformance_sweep(builds) -> dict:
+    """`run_conformance` over the four contract-honouring scenarios under
+    FIFO and EDF at full width on the card, against the port's CPU run of
+    the same cases for CONFORMANCE_CPU."""
+    cfg = ConformanceConfig(max_dim=None)
+    tally = LaunchTally()
+    before = matmul_window_call.launches
+    t0 = time.perf_counter()
+    with tally.counting():
+        report = run_conformance(DEFAULT_SCENARIOS, POLICIES, device="cuda",
+                                 cfg=cfg, prebuilt=builds)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    launched = matmul_window_call.launches - before
+    windows = tally.card_windows()
+    del tally  # its servers hold the sweep's weights on the card
+    torch.cuda.empty_cache()
+    print("[conformance] sweep, full width on the card:")
+    for line in report.summary().splitlines():
+        print(f"[conformance]   {line}")
+    check(report.ok, f"sweep: {[str(v) for v in report.violations]}")
+    check(len(report.cases) == len(DEFAULT_SCENARIOS) * len(POLICIES),
+          "sweep: every scenario under every policy")
+    check(launched == windows > 0,
+          f"sweep: {launched} launches vs {windows} windows executed")
+    t0 = time.perf_counter()
+    for case in report.cases:
+        if case.scenario in CONFORMANCE_CPU:
+            cpu = run_case(builds[case.scenario], case.policy, device="cpu", cfg=cfg)
+            check(model_fields(case) == model_fields(cpu),
+                  f"{case.scenario}/{case.policy}: the card's case equals the CPU run's")
+    t_cpu = time.perf_counter() - t0
+    print(f"[conformance] sweep: {len(report.cases)} cases ok, launches {launched} "
+          f"= windows executed (run_case serves without warm-up); "
+          f"{len(CONFORMANCE_CPU) * len(POLICIES)} cases == their CPU run | host s: "
+          f"card {t_card:.3f}, cpu {t_cpu:.3f}")
+    return {"cases": [
+        {"scenario": c.scenario, "policy": c.policy, "ok": c.ok,
+         "analysis_schedulable": c.analysis_schedulable,
+         "des_schedulable": c.des_schedulable, "server_bounded": c.server_bounded,
+         "tasks": [dataclasses.asdict(t) for t in c.tasks],
+         "card_s": c.wall_seconds} for c in report.cases],
+        "launches": launched, "card_s": t_card, "cpu_s": t_cpu}
+
+
+def conformance_legs(builds) -> dict:
+    """The sharded, shedding, mode-switch, migration and DSE legs on the
+    card at CONFORMANCE_LEGS' settings; each must be ok."""
+    out = {}
+    for leg, name, policy, periods, kwargs in CONFORMANCE_LEGS:
+        cfg = ConformanceConfig(horizon_periods=periods)
+        if leg is run_dse_case:
+            subject = name  # the leg runs its own DSE
+        else:
+            if name not in builds:
+                builds[name] = search_design(name)[0]
+            subject = builds[name]
+        tally = LaunchTally()
+        before = matmul_window_call.launches
+        t0 = time.perf_counter()
+        with tally.counting():
+            res = leg(subject, policy, device="cuda", cfg=cfg, **kwargs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = matmul_window_call.launches - before
+        check(res.ok, f"{leg.__name__} {name}: {[str(v) for v in res.violations]}")
+        check(launched == tally.card_windows() > 0,
+              f"{leg.__name__}: {launched} launches vs {tally.card_windows()} "
+              "windows + warm-up")
+        print(f"[conformance] {leg.__name__} {name}/{policy} {kwargs} horizon "
+              f"{periods:g} periods, max_dim {cfg.max_dim}: ok | servers "
+              f"{len(tally.servers)}, launches {launched} (warm-up "
+              f"{tally.warmup}) | host s {secs:.3f}")
+        out[leg.__name__] = {"scenario": name, "ok": res.ok, "launches": launched,
+                             "seconds": secs}
+    return out
+
+
+def wall_attempt(built, calibrated_admission) -> dict:
+    """One `run_wallclock_case` of ``built`` under EDF at WALL_CFG on the
+    card, under the profiler: the case, the card's busy share of the
+    leg's wall time (calibration, builds and the run), and the launches
+    against the tally."""
+    cfg = ConformanceConfig(calibrated_admission=calibrated_admission, **WALL_CFG)
+    tally = LaunchTally()
+    before = matmul_window_call.launches
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof, tally.counting():
+        t0 = time.perf_counter()
+        case = run_wallclock_case(built, "edf", device="cuda", cfg=cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = matmul_window_call.launches - before
+    check(launched == tally.card_windows(),
+          f"wall {built.scenario.name}: {launched} launches vs "
+          f"{tally.card_windows()} windows + warm-up + calibration probes")
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return {"case": case, "wall_s": wall, "busy_us": busy_us, "launches": launched,
+            "probes": tally.probes}
+
+
+def conformance_wall(builds) -> list:
+    """`run_wallclock_case` on steady_city and rush_hour, then steady_city
+    in calibrated-admission mode, each within its WALL_CASES retries."""
+    out = []
+    for name, calibrated, retries in WALL_CASES:
+        attempts = [wall_attempt(builds[name], calibrated)]
+        while not attempts[-1]["case"].ok and len(attempts) <= retries:
+            attempts.append(wall_attempt(builds[name], calibrated))
+        for n, a in enumerate(attempts):
+            case = a["case"]
+            busy = (f"card busy {a['busy_us'] / 1e3:.3f} ms of {a['wall_s'] * 1e3:.3f} "
+                    f"ms ({a['busy_us'] / 1e4 / a['wall_s']:.2f}%)" if a["busy_us"] > 0
+                    else "card busy time not measured (profiler saw none)")
+            print(f"[conformance] wall {name} edf, admission {case.admission_mode}, "
+                  f"attempt {n + 1}: ok {case.ok}, period_scale "
+                  f"{case.period_scale!r}, horizon {case.horizon_s * 1e3:.3f} ms, "
+                  f"margin {case.margin:g} | {busy}; launches {a['launches']} "
+                  f"({a['probes']} calibration probes)")
+            for t in case.tasks:
+                print(f"[conformance]   {t.task}: median {t.measured_median * 1e3:.4f} "
+                      f"ms, max {t.measured_max * 1e3:.4f} ms, jobs {t.jobs}, DES "
+                      f"{t.predicted_des_max * 1e3:.4f} ms, bound "
+                      f"{t.predicted_bound * 1e3:.4f} ms, median/bound "
+                      f"{t.measured_median / t.predicted_bound:.4f}, in flight "
+                      f"{t.in_flight}")
+            for v in case.violations:
+                print(f"[conformance]   violation: {v}")
+        case = attempts[-1]["case"]
+        check(case.ok, f"wall {name} ({case.admission_mode}) after {len(attempts)} "
+              f"attempt(s): {[str(v) for v in case.violations]}")
+        out.append({
+            "scenario": name, "admission_mode": case.admission_mode,
+            "attempts": len(attempts), "ok": case.ok,
+            "launches": sum(a["launches"] for a in attempts),
+            "period_scale": case.period_scale, "horizon_s": case.horizon_s,
+            "margin": case.margin,
+            "busy_share": attempts[-1]["busy_us"] / 1e6 / attempts[-1]["wall_s"],
+            "tasks": [dataclasses.asdict(t) for t in case.tasks]})
+    return out
+
+
+def phase_conformance(builds) -> dict:
+    """The conformance harness on the card: the full-width sweep, the
+    other legs, the wall-clock leg. ``builds`` maps scenario names to the
+    port's builds (the gateway phase's); it gains the ones built here.
+    Returns the phase's results and its window launches."""
+    reset_counts()  # the conformance path starts here
+    t0 = time.perf_counter()
+    for name in DEFAULT_SCENARIOS:
+        if name not in builds:
+            builds[name] = search_design(name)[0]
+    sweep = conformance_sweep(builds)
+    legs = conformance_legs(builds)
+    wall = conformance_wall(builds)
+    launched = counts()
+    check(launched["preemptible_matmul_window"] == sweep["launches"]
+          + sum(r["launches"] for r in legs.values())
+          + sum(w["launches"] for w in wall),
+          "conformance launches add up: every window through the kernel")
+    check(launched["flash_attention"] == launched["rwkv6_scan"]
+          == launched["mamba_scan"] == 0, "the conformance path launches no LM kernel")
+    secs = time.perf_counter() - t0
+    print(f"[conformance] phase: {secs:.3f} s, window launches "
+          f"{launched['preemptible_matmul_window']}")
+    return {"sweep": sweep, "legs": legs, "wall": wall, "seconds": secs,
+            "launches": launched["preemptible_matmul_window"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2244,6 +2572,7 @@ def main() -> int:
     phase_wall()
     gateway = phase_gateway()
     sharded = phase_sharded()
+    conf = phase_conformance(gateway.pop("built"))
     flash_row, wkv_row, scan_row = phase_lm_kernels()
     lm_runs = {name: phase_lm(name, seed=100 + i, n_layers=n, kv_quant=q)
                for i, (name, n, q) in enumerate(LM_MODELS)}
@@ -2251,12 +2580,12 @@ def main() -> int:
     pmm = kernel_entry(
         "preemptible_matmul_window", "src/repro_torch/csrc/preemptible_matmul.cu",
         "src/repro/kernels/preemptible_matmul/kernel.py:36", "mma.sync",
-        launches + gateway["launches"] + sharded,
+        launches + gateway["launches"] + sharded + conf["launches"],
         dict(head, max_abs_err=max(
             r["max_abs_err"] for r in rows if r["dtype"] == "float32")),
     )
     pmm.update(launches_by_path={"serve": launches, "gateway": gateway["launches"],
-                                 "sharded": sharded},
+                                 "sharded": sharded, "conformance": conf["launches"]},
                launch_ms=head["launch_ms"],
                fp32_fma_bound_ms=head["fp32_fma_bound_ms"],
                shape={k: head[k] for k in ("M", "K", "N", "window", "dtype")})
@@ -2287,6 +2616,7 @@ def main() -> int:
     bwd.update(split_floor_ms=bwd_row["split_floor_ms"],
                shape={k: bwd_row[k] for k in ("B", "S", "H", "Hkv", "hd", "dtype")})
     print(previous_line([pmm, flash, wkv, scan, bwd]))
+    print(json.dumps({"conformance": conf}))
     print(json.dumps({"kernels": [pmm, flash, wkv, scan, bwd]}))
     print(card_line())
     print(json.dumps({

@@ -15,9 +15,10 @@ Two sources:
   `calibrate`.
 - `CostModel.calibrate` — the measured path: `PharosServer.warmup`-style
   probes time the window executor per (task, layer) on the server's
-  device — with CUDA events on the card — and the model carries
-  measured seconds and the name of the device that was timed.
-  `segment_table()` then yields a *measured* WCET table.
+  device — on the host clock, through the device sync, as the serving
+  loop pays per window — and the model carries measured seconds and the
+  name of the device that was timed. `segment_table()` then yields a
+  *measured* WCET table.
 
 Preemption in the serving runtime happens only at window boundaries: a
 preemptor blocks for at most one in-flight window and resumption costs
@@ -222,11 +223,13 @@ class CostModel:
     ) -> "CostModel":
         """Measure per-(task, layer) window times on ``server``'s device
         (warmup-style probes: min over ``reps`` timed windows after one
-        untimed pass) and return a measured cost model. On the card each
-        window is timed with CUDA events and the model records the
-        card's name; on the CPU the host clock times the plain version
-        and ``device`` stays None. ``period_scale`` optionally rescales
-        the measured seconds onto another timebase."""
+        untimed pass) and return a measured cost model. Each window is
+        timed on the host clock from before the launch to after the
+        device sync (on the CPU, to the window's return): what the
+        serving loop pays per window. On the card the model records the
+        card's name; on the CPU ``device`` stays None. ``period_scale``
+        optionally rescales the measured seconds onto another
+        timebase."""
         if reps < 1:
             raise ValueError("need at least one timed repetition")
         dev = server.device
@@ -242,15 +245,25 @@ class CostModel:
                     block=server.block, backend=server.backend,
                     window_tiles=server.window_tiles,
                 )
+                c0 = torch.zeros((M, N), dtype=torch.float32, device=dev)
                 # untimed pass: kernel build/load and first launch
                 c, _ = _run_window(
-                    x, w, torch.zeros((M, N), dtype=torch.float32, device=dev), 0,
+                    x, w, c0, 0,
                     block=server.block, window=window,
                 )
-                best = min(
-                    _time_window(x, w, block=server.block, window=window)
-                    for _ in range(reps)
-                )
+                _sync(dev)
+                best = float("inf")
+                for _ in range(reps):
+                    # rtlint: disable=clock-domain -- calibration probe:
+                    # this deliberately measures real window wall time
+                    t0 = time.perf_counter()
+                    c, _ = _run_window(
+                        x, w, c0, 0,
+                        block=server.block, window=window,
+                    )
+                    _sync(dev)
+                    # rtlint: disable=clock-domain -- calibration probe
+                    best = min(best, time.perf_counter() - t0)
                 row_c.append(max(best, 1e-12) * n_win * period_scale)
                 row_w.append(n_win)
                 # chain shapes like the real execution (one window is
@@ -272,24 +285,8 @@ class CostModel:
         )
 
 
-def _time_window(x, w, *, block, window) -> float:
-    """Seconds one window of ``x @ w`` takes on the operands' device."""
-    c = torch.zeros(
-        (x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device
-    )
-    if x.device.type == "cuda":
-        stream = torch.cuda.current_stream(x.device)
-        torch.cuda.synchronize(x.device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record(stream)
-        _run_window(x, w, c, 0, block=block, window=window)
-        end.record(stream)
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
-    # rtlint: disable=clock-domain -- calibration probe: this
-    # deliberately measures the plain CPU window's real time
-    t0 = time.perf_counter()
-    _run_window(x, w, c, 0, block=block, window=window)
-    # rtlint: disable=clock-domain -- calibration probe
-    return time.perf_counter() - t0
+def _sync(dev) -> None:
+    """Wait for the card to finish what was launched on ``dev`` (the
+    counterpart of ``jax.block_until_ready``); nothing on the CPU."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

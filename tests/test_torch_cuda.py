@@ -36,7 +36,10 @@ autoscaled) on the card run through ``chip_smoke.py``'s gateway and
 sharded-phase helpers at a reduced size, with those phases' checks:
 report (and for the sharded runs trace) equal to the CPU run's, one
 launch per window, every completed job's chained output within
-``CHAIN_REL_TOL`` of float64.
+``CHAIN_REL_TOL`` of float64. The conformance harness on the card: the
+calibration (host clock through the sync) covers each window's card
+time, a `run_case` equals the CPU run's, and the wall-clock case at the
+reference's own test settings comes back clean.
 """
 import dataclasses
 import importlib.util
@@ -760,3 +763,72 @@ def test_sharded_on_card_equals_cpu_run_with_every_window_a_launch(card, case):
     if case == "autoscale":
         shards = run["report"].shard_counts()
         assert shards[1] > shards[0] and shards[2] < shards[1]
+
+
+# ---------------------------------------------------------------------------
+# the conformance harness on the card, and the calibration it rests on
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_calibration_names_the_card_and_covers_the_window_on_it(card):
+    """`CostModel.calibrate` times each window on the host clock through
+    the sync after it: each per-window WCET is at least the same window's
+    time on the card alone (CUDA-graph replay between CUDA events). The
+    CUDA-event time around one launch is no lower bound: on an idle card
+    the start event fires before the wrapper's host work, so it holds
+    host time as well and may read above or below the WCET."""
+    from repro_torch.conformance import CostModel
+    from repro_torch.pipeline import PharosServer
+
+    smoke = _load_smoke()
+    design, _, _, tasks = smoke.steady_city(device="cuda")
+    srv = PharosServer(tasks, design.n_stages, policy="edf", device="cuda")
+    cm = CostModel.calibrate(srv, reps=3)
+    assert cm.source == "calibrated"
+    assert cm.device == torch.cuda.get_device_name(card)
+    split = smoke.calibration_split(srv, cm, reps=3)
+    assert [len(rows) for rows in split] == [len(t.weights) for t in tasks]
+    for rows in split:
+        for r in rows:
+            assert r["wcet_us"] >= r["card_us"] > 0.0
+            assert r["event_us"] >= r["card_us"]
+            assert 0.0 < r["card_share"] <= 1.0
+
+
+@pytest.mark.cuda
+def test_conformance_case_on_card_equals_cpu_run(card):
+    """`run_case` on steady_city under EDF at the harness's defaults:
+    every window through the kernel on the card, and the case equal to
+    the CPU run's field for field but for ``wall_seconds``."""
+    from repro_torch.conformance import run_case
+
+    smoke = _load_smoke()
+    built, _ = smoke.search_design("steady_city")
+    before = matmul_window_call.launches
+    got = run_case(built, "edf", device="cuda")
+    assert matmul_window_call.launches > before
+    want = run_case(built, "edf", device="cpu")
+    assert got.ok, [str(v) for v in got.violations]
+    assert smoke.model_fields(got) == smoke.model_fields(want)
+
+
+@pytest.mark.cuda
+def test_wallclock_case_on_card_at_the_reference_test_settings(card):
+    """The reference's own wall-clock test on the card: steady_city built
+    as that test builds it, horizon 8 periods, 2 calibration reps,
+    margin 8, one host-noise retry."""
+    from repro_torch.conformance import ConformanceConfig, run_wallclock_case
+
+    smoke = _load_smoke()
+    built = smoke.build(smoke.get_scenario("steady_city"), smoke.paper_platform(16),
+                        beam_width=4)
+    cfg = ConformanceConfig(wall_horizon_periods=8.0, wall_reps=2, wall_margin=8.0)
+    case = run_wallclock_case(built, "edf", device="cuda", cfg=cfg)
+    if not case.ok:  # host-noise retry, as the reference's test
+        case = run_wallclock_case(built, "edf", device="cuda", cfg=cfg)
+    assert case.ok, [str(v) for v in case.violations]
+    assert case.period_scale > 0 and math.isfinite(case.period_scale)
+    for row in case.tasks:
+        assert row.jobs > 0
+        assert 0.0 < row.measured_median <= row.measured_max
+        assert 0.0 < row.predicted_des_max <= row.predicted_bound
+        assert row.in_flight <= cfg.backlog_limit
