@@ -99,7 +99,10 @@ Phases, each printing what it finds; any failure exits non-zero:
              share of the bound.
 9. lm      — Mistral-NeMo-12B and RWKV-6-7B at full width and depth, then
              Jamba-v0.1-52B at full width and 16 of its 32 layers (all 32
-             hold 102.9 GB in bf16, more than the card's 80 GB), one
+             hold 102.9 GB in bf16, more than the card's 80 GB), then the
+             stub frontends: MusicGen-medium at full width and depth and
+             InternVL2-76B at full width and 8 of its 80 layers (all 80
+             hold 141 GB), fed bf16 embeddings drawn from the seed, one
              after the other, with random bf16 weights from a CUDA
              generator: prefill of a 2 x 2048 prompt and 16 greedy decode
              steps through ``repro_torch.launch.steps``, with the
@@ -109,8 +112,8 @@ Phases, each printing what it finds; any failure exits non-zero:
              (for Jamba also an int8-KV decode step against the bf16
              one), a 2-layer full-width model
              against the port's own CPU run of the same weights and
-             tokens, and the times under the PyTorch profiler with the
-             card's busy share.
+             tokens (or embeddings), and the times
+             under the PyTorch profiler with the card's busy share.
 10. train  — the flash forward's log-sum-exp at Mistral-NeMo's shape
              (against the plain version's; the output the same bits with
              and without it; the forward's time both ways); the
@@ -122,10 +125,16 @@ Phases, each printing what it finds; any failure exits non-zero:
              bit-identical, with its card time, the plain version's,
              SDPA's backward alone (a yardstick the port never calls), its
              bound and its split floor (P and dS as bf16 hi + lo: 10
-             products per pair); one train step of StableLM-1.6B at full width
-             and 2 layers against the port's own CPU run (loss, grad
-             norm, every gradient leaf, every parameter after the AdamW
-             update); then the main path, ``train_loop`` on StableLM-1.6B
+             products per pair), and the flash forward at StableLM's
+             training shape with its bound; the WKV-6 and selective-scan
+             backward kernels against their plain versions at the
+             training shapes (B 8 x 2048: RWKV-6's 64 heads of 64,
+             Jamba's d_inner 8192) and at B 2 x 2048, within 1e-4 of the
+             max and two launches bit-identical, with card time, plain
+             time and bound; one train step of StableLM-1.6B and one of
+             RWKV-6-7B at full width and 2 layers against the port's own
+             CPU run (loss, grad norm, every gradient leaf, every
+             parameter after the AdamW update); then the main path, ``train_loop`` on StableLM-1.6B
              at full width and depth (24 layers, bf16 parameters, fp32
              AdamW moments) for 8 steps at global batch 8 x seq 2048,
              with the objects the earlier phases left alive frozen out of
@@ -135,10 +144,17 @@ Phases, each printing what it finds; any failure exits non-zero:
              no other LM kernel; ms per step, tokens/s, card peak memory,
              the last step under the profiler (busy share, top kernels,
              each backward pass's card time per step);
-             last, a checkpoint resume on the card (smoke Minitron-4B at
-             head width 64, 20 steps + resume to 30 against 30 straight).
-11. report — a ``conformance`` and a ``kernels`` JSON line, the card's
-             name and power limit, and the result line.
+             a checkpoint resume on the card (smoke Minitron-4B at head
+             width 64, 20 steps + resume to 30 against 30 straight); last,
+             ``train_loop`` on RWKV-6-7B at full width and 8 of its 32
+             layers and on Jamba-v0.1-52B at full width and its first
+             layer (mamba, dense SwiGLU), 8 steps of 8 x 2048 each
+             (``RECURRENT_TRAIN`` says why those depths), with the same
+             readings and two forward and one backward launch of WKV-6 or
+             the scan per recurrent layer per step.
+11. report — a ``conformance`` and a ``kernels`` JSON line (seven
+             hand-written kernels), the card's name and power limit, and
+             the result line.
 
 Exits with code 2 and prints no result when no CUDA card is visible.
 """
@@ -194,8 +210,14 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_plain,
     tol_ratio,
 )
-from repro_torch.kernels.mamba_scan.kernel import mamba_scan_call  # noqa: E402
-from repro_torch.kernels.mamba_scan.ref import mamba_scan_plain  # noqa: E402
+from repro_torch.kernels.mamba_scan.kernel import (  # noqa: E402
+    mamba_scan_backward_call,
+    mamba_scan_call,
+)
+from repro_torch.kernels.mamba_scan.ref import (  # noqa: E402
+    mamba_scan_backward_plain,
+    mamba_scan_plain,
+)
 from repro_torch.kernels.preemptible_matmul import (  # noqa: E402
     grid_geometry,
     matmul_resumable,
@@ -210,8 +232,14 @@ from repro_torch.kernels.preemptible_matmul.ref import (  # noqa: E402
     matmul_ref,
     matmul_window_plain,
 )
-from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_call  # noqa: E402
-from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_plain  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.kernel import (  # noqa: E402
+    rwkv6_scan_backward_call,
+    rwkv6_scan_call,
+)
+from repro_torch.kernels.rwkv6_scan.ref import (  # noqa: E402
+    rwkv6_scan_backward_plain,
+    rwkv6_scan_plain,
+)
 from repro_torch.data import DataConfig, SyntheticTokenDataset  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
@@ -1592,9 +1620,12 @@ def phase_conformance(builds) -> dict:
 # Mistral-NeMo-12B, RWKV-6-7B, Jamba-v0.1-52B
 # ---------------------------------------------------------------------------
 #: served one after the other: (config, layers served (None = all),
-#: whether its int8-KV decode step is held against the bf16 one)
+#: whether its int8-KV decode step is held against the bf16 one). The
+#: stub frontends (MusicGen-medium, InternVL2-76B) take embeddings drawn
+#: from the seed in place of tokens, at every prefill and decode step
 LM_MODELS = (("mistral_nemo_12b", None, False), ("rwkv6_7b", None, False),
-             ("jamba_v0_1_52b", 16, True))
+             ("jamba_v0_1_52b", 16, True), ("musicgen_medium", None, False),
+             ("internvl2_76b", 8, False))
 LM_BATCH, LM_PROMPT, LM_NEW_TOKENS = 2, 2048, 16
 LM_CACHE_LEN = LM_PROMPT + LM_NEW_TOKENS
 #: card against the port's own CPU run: a 2-layer model at full width
@@ -1633,7 +1664,9 @@ def reset_counts() -> None:
     flash_attention_call.launches = 0
     flash_attention_backward_call.launches = 0
     rwkv6_scan_call.launches = 0
+    rwkv6_scan_backward_call.launches = 0
     mamba_scan_call.launches = 0
+    mamba_scan_backward_call.launches = 0
 
 
 def counts() -> dict:
@@ -1642,6 +1675,8 @@ def counts() -> dict:
         "flash_attention": flash_attention_call.launches,
         "rwkv6_scan": rwkv6_scan_call.launches,
         "mamba_scan": mamba_scan_call.launches,
+        "rwkv6_scan_backward": rwkv6_scan_backward_call.launches,
+        "mamba_scan_backward": mamba_scan_backward_call.launches,
     }
 
 
@@ -1894,17 +1929,37 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def serve_lm(cfg, params, tokens, cache_len, new_tokens):
-    """Prefill ``tokens``, then ``new_tokens`` greedy decode steps.
-    Returns (prefill logits, decode logits per step, generated tokens,
-    prefill s, decode s, kernel launches and MoE group-size reads at the
-    end of the prefill), host times around synchronised work."""
+def lm_inputs(cfg, gen, B, S):
+    """A prompt and a decode stream of S steps on the card: tokens drawn
+    from ``gen``, or, for a stub frontend, bf16 embeddings (B, S,
+    frontend_dim) drawn from it. Returns (key, sequence)."""
+    if cfg.frontend == "none":
+        return "tokens", torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                       device="cuda")
+    return "embeds", torch.randn((B, S, cfg.frontend_dim), generator=gen,
+                                 device="cuda").bfloat16()
+
+
+def _step_inputs(key, nxt, stream, i):
+    """Decode step i's inputs: the last greedy token, or the stub
+    frontend's embedding at step i of ``stream``."""
+    return {"tokens": nxt} if key == "tokens" else {"embeds": stream[:, i]}
+
+
+def serve_lm(cfg, params, prompt, cache_len, new_tokens, stream=None):
+    """Prefill ``prompt`` ({"tokens"} or {"embeds"}), then ``new_tokens``
+    greedy decode steps (a stub frontend's steps take ``stream``'s
+    embeddings). Returns (prefill logits, decode logits per step,
+    generated tokens, prefill s, decode s, kernel launches and MoE
+    group-size reads at the end of the prefill), host times around
+    synchronised work."""
     prefill_step = make_prefill_step(cfg, cache_len)
     serve_step = make_serve_step(cfg)
-    B, S = tokens.shape
+    (key, seq), = prompt.items()
+    B, S = seq.shape[:2]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = prefill_step(params, {"tokens": tokens})
+    logits, cache = prefill_step(params, prompt)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     after_prefill = dict(counts(), moe_host_reads=L.moe_dropless.host_reads)
@@ -1913,8 +1968,9 @@ def serve_lm(cfg, params, tokens, cache_len, new_tokens):
     t0 = time.perf_counter()
     for i in range(new_tokens):
         out.append(nxt)
-        pos = torch.full((B,), S + i, dtype=torch.long, device=tokens.device)
-        step_logits, cache = serve_step(params, cache, {"tokens": nxt}, pos)
+        pos = torch.full((B,), S + i, dtype=torch.long, device=seq.device)
+        step_logits, cache = serve_step(params, cache,
+                                        _step_inputs(key, nxt, stream, i), pos)
         steps.append(step_logits)
         nxt = step_logits.argmax(-1)
     torch.cuda.synchronize()
@@ -1928,22 +1984,23 @@ def card_vs_cpu(name, cfg, seed) -> dict:
     small = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = lm.init_params(gen, small, torch.bfloat16, "cuda")
-    tokens = torch.randint(0, cfg.vocab, (LM_CPU_BATCH, LM_CPU_PROMPT + LM_CPU_DECODE),
-                           generator=gen, device="cuda")
+    key, seq = lm_inputs(cfg, gen, LM_CPU_BATCH, LM_CPU_PROMPT + LM_CPU_DECODE)
     cache_len = LM_CPU_PROMPT + LM_CPU_DECODE
-    results = {}
+    results, host_s = {}, {}
     for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
         p = params if device == "cuda" else _to(params, "cpu")
-        toks = tokens.to(device)
-        logits, cache = lm.prefill(p, small, {"tokens": toks[:, :LM_CPU_PROMPT]}, cache_len)
+        sq = seq.to(device)
+        logits, cache = lm.prefill(p, small, {key: sq[:, :LM_CPU_PROMPT]}, cache_len)
         outs = [logits]
         for i in range(LM_CPU_DECODE):
             pos = torch.full((LM_CPU_BATCH,), LM_CPU_PROMPT + i, dtype=torch.long,
                              device=device)
             logits, cache = lm.decode_step(
-                p, small, cache, {"tokens": toks[:, LM_CPU_PROMPT + i]}, pos)
+                p, small, cache, {key: sq[:, LM_CPU_PROMPT + i]}, pos)
             outs.append(logits)
         results[device] = torch.stack(outs).float().cpu()
+        host_s[device] = time.perf_counter() - t0
         del p, cache
     del params
     torch.cuda.empty_cache()
@@ -1955,15 +2012,21 @@ def card_vs_cpu(name, cfg, seed) -> dict:
           f"{name}: 2-layer card vs CPU logits rel L2 {rel:.3g} > {CARD_CPU_REL_L2}")
     print(f"[lm] {name}: card vs CPU, {LM_CPU_LAYERS} layers at full width, "
           f"B={LM_CPU_BATCH} S={LM_CPU_PROMPT} + {LM_CPU_DECODE} decode: logits "
-          f"rel L2 {rel:.3g} (<= {CARD_CPU_REL_L2}), top-1 agree {top1:.2f}")
-    return {"rel_l2": rel, "top1": top1}
+          f"rel L2 {rel:.3g} (<= {CARD_CPU_REL_L2}), top-1 agree {top1:.2f}; host s "
+          f"card {host_s['cuda']:.3f}, CPU {host_s['cpu']:.3f}")
+    return {"rel_l2": rel, "top1": top1, "host_s": host_s}
 
 
 #: the port's own kernels by the name the profiler gives them
 #: the backward's three passes, in launch order
 BWD_PASSES = ("delta_kernel", "dkdv_kernel", "dq_kernel")
+#: the WKV-6 and selective-scan backward kernels, in launch order
+WKV_BWD_PASSES = ("wkv6_bwd_sweep_kernel", "wkv6_bwd_reverse_kernel",
+                  "wkv6_bwd_du_kernel")
+SCAN_BWD_PASSES = ("scan_bwd_stash_kernel", "scan_bwd_reverse_kernel",
+                   "scan_bwd_dbc_kernel", "scan_bwd_dA_kernel")
 PORT_KERNELS = ("window_kernel", "fa_kernel", "wkv6_kernel", "scan_kernel",
-                *BWD_PASSES)
+                *BWD_PASSES, *WKV_BWD_PASSES, *SCAN_BWD_PASSES)
 
 
 def _on_card(prof) -> tuple[float, int, list, dict]:
@@ -1985,23 +2048,25 @@ def _on_card(prof) -> tuple[float, int, list, dict]:
             sorted(rows, reverse=True)[:5], own)
 
 
-def profile_lm(cfg, params, tokens) -> dict:
+def profile_lm(cfg, params, prompt, stream) -> dict:
     """The prefill and the decode steps again, each under its own PyTorch
     profiler window: the card's time in each and its top kernels. The
     profiler slows the host, not the card, so the card's share of each
     phase is taken against that phase's time measured without it."""
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    B, S = tokens.shape
+    (key, seq), = prompt.items()
+    B, S = seq.shape[:2]
     with profile(activities=acts) as prof:
-        logits, cache = make_prefill_step(cfg, LM_CACHE_LEN)(params, {"tokens": tokens})
+        logits, cache = make_prefill_step(cfg, LM_CACHE_LEN)(params, prompt)
         torch.cuda.synchronize()
     prefill_us, prefill_n, prefill_top, prefill_own = _on_card(prof)
     serve_step = make_serve_step(cfg)
     nxt = logits.argmax(-1)
     with profile(activities=acts) as prof:
         for i in range(LM_NEW_TOKENS):
-            pos = torch.full((B,), S + i, dtype=torch.long, device=tokens.device)
-            step_logits, cache = serve_step(params, cache, {"tokens": nxt}, pos)
+            pos = torch.full((B,), S + i, dtype=torch.long, device=seq.device)
+            step_logits, cache = serve_step(params, cache,
+                                            _step_inputs(key, nxt, stream, i), pos)
             nxt = step_logits.argmax(-1)
         torch.cuda.synchronize()
     decode_us, decode_n, decode_top, decode_own = _on_card(prof)
@@ -2066,15 +2131,19 @@ def phase_lm(name: str, seed: int, n_layers=None, kv_quant=False) -> dict:
           f"{param_count(params) / 1e9:.3f} B parameters, "
           f"{param_bytes(params) / 1e9:.2f} GB bf16, built in "
           f"{time.perf_counter() - t0:.1f} s")
-    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen,
-                           device="cuda")
+    key, seq = lm_inputs(cfg, gen, LM_BATCH, LM_PROMPT + LM_NEW_TOKENS)
+    prompt, stream = {key: seq[:, :LM_PROMPT]}, seq[:, LM_PROMPT:]
+    if key == "embeds":
+        print(f"[lm] {name}: {cfg.frontend} frontend: prompt and decode steps are "
+              f"bf16 embeddings of width {cfg.frontend_dim} drawn from the seed, "
+              "lifted by frontend_proj")
     # warm-up (cuBLAS handles, kernel libraries), not counted
-    serve_lm(cfg, params, tokens[:, :64], 64 + 2, 2)
+    serve_lm(cfg, params, {key: seq[:, :64]}, 64 + 2, 2, seq[:, :2])
 
     reset_counts()  # the main path starts here
     L.moe_dropless.host_reads = 0
     logits, steps, out, t_prefill, t_decode, at_prefill = serve_lm(
-        cfg, params, tokens, LM_CACHE_LEN, LM_NEW_TOKENS)
+        cfg, params, prompt, LM_CACHE_LEN, LM_NEW_TOKENS, stream)
     launched = counts()
     moe_reads_per_step = (
         (L.moe_dropless.host_reads - at_prefill["moe_host_reads"]) / LM_NEW_TOKENS)
@@ -2099,9 +2168,10 @@ def phase_lm(name: str, seed: int, n_layers=None, kv_quant=False) -> dict:
               f"{at_prefill['moe_host_reads']} times in the prefill and "
               f"{moe_reads_per_step:g} times per decode step (once per MoE layer)")
 
-    # decode at step S against a prefill over the S+1 tokens
-    longer = torch.cat([tokens, out[:, :1]], dim=1)
-    want, _ = make_prefill_step(cfg, LM_PROMPT + 1)(params, {"tokens": longer})
+    # decode at step S against a prefill over the S+1 tokens (embeddings)
+    longer = (torch.cat([prompt[key], out[:, :1]], dim=1) if key == "tokens"
+              else seq[:, :LM_PROMPT + 1])
+    want, _ = make_prefill_step(cfg, LM_PROMPT + 1)(params, {key: longer})
     rel = _rel_l2(steps[0], want)
     top1 = _top1(steps[0], want)
     check(rel <= CONSIST_REL_L2 and top1 >= CONSIST_TOP1,
@@ -2109,8 +2179,9 @@ def phase_lm(name: str, seed: int, n_layers=None, kv_quant=False) -> dict:
     print(f"[lm] {name}: decode at step {LM_PROMPT} vs prefill over "
           f"{LM_PROMPT + 1}: rel L2 {rel:.3g} (<= {CONSIST_REL_L2}), top-1 "
           f"agree {top1:.2f} (>= {CONSIST_TOP1})")
-    extra = {"kv_quant": kv_quant_step(cfg, params, tokens, out[:, 0])} if kv_quant else {}
-    prof = profile_lm(cfg, params, tokens)
+    extra = ({"kv_quant": kv_quant_step(cfg, params, prompt["tokens"], out[:, 0])}
+             if kv_quant else {})
+    prof = profile_lm(cfg, params, prompt, stream)
     del params, logits, steps
     torch.cuda.empty_cache()
     ms_token = t_decode / LM_NEW_TOKENS * 1e3
@@ -2256,6 +2327,160 @@ def forward_lse_case(B, S, H, Hkv, hd, seed) -> dict:
     return {"ms": ms, "lse_ms": lse_ms, "lse_err": err}
 
 
+#: the WKV-6 and selective-scan backward kernels against their plain
+#: versions (the plain WKV-6 backward a step-by-step recurrence, the
+#: plain scan backward chunked scans of the same decays in another
+#: order): 1e-4 of the max, the forwards' bound
+WKV_BWD_MAX_REL_ERR = SCAN_BWD_MAX_REL_ERR = 1e-4
+#: the plain scan backward's chunk on the card (its (Bb, chunk, di, ns)
+#: temporaries are 268 MB each at the training shape)
+SCAN_BWD_PLAIN_CHUNK = 64
+#: training the recurrent mixers: (config, layers kept at full width),
+#: each at global batch TRAIN_BATCH. RWKV-6-7B's 32 layers would hold ~170 GB at the ~22
+#: bytes a parameter StableLM's update peaks at, 8 layers ~55 GB; one
+#: Jamba layer pair would hold ~82 GB (layer 1 is MoE, ~2.8 B parameters
+#: alone), so Jamba trains its first layer (mamba mixer, dense SwiGLU)
+RECURRENT_TRAIN = (("rwkv6_7b", 8), ("jamba_v0_1_52b", 1))
+#: fp32 FMA-class operations the WKV-6 backward needs per state element
+#: and step: the states again (w S + k v: 3), S dy (2), G's update (3),
+#: G v (2), Gᵀ k (2); dw comes from a walk of O(hd) a step (w dw =
+#: rowsum(G S) - k (G v), one exact rowsum a stash) and the bonus term
+#: (Σ r u k) dy is O(hd) a step, so neither counts here
+WKV_BWD_FLOPS = 12
+#: per state element and step of the scan backward: the states again
+#: (dt A, a h + (dt x) B: 4), the adjoint (q + dy C, a g: 3), g B, g h a
+#: A, g h a dt, g dt x, h dy (10)
+SCAN_BWD_FLOPS = 17
+
+
+def wkv_bwd_bound(B, S, H, hd):
+    """Least time (ms) for the WKV-6 backward, and what bounds it: r, k,
+    v, w, dy read and dr, dk, dv, dw written once (plus u and du) over
+    memory bandwidth, against WKV_BWD_FLOPS per state element and step
+    at the fp32 FMA peak."""
+    nbytes = 4 * (9 * B * S * H * hd + 2 * H * hd)
+    flops = float(WKV_BWD_FLOPS) * B * S * H * hd * hd
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def scan_bwd_bound(B, S, di, ns):
+    """Least time (ms) for the selective-scan backward, and what bounds
+    it: dt, x, dy read and ddt, dx written once, B, C read and dB, dC
+    written, A, h0 read and dA, dh0 written, over memory bandwidth;
+    against the larger of one exponential per state element and step
+    (a_t, which both the states and the adjoint need) at the SFU rate
+    and SCAN_BWD_FLOPS per element and step at the fp32 FMA peak."""
+    elems = float(B * S * di * ns)
+    nbytes = 4 * (5 * B * S * di + 4 * B * S * ns + 2 * di * ns + 2 * B * di * ns)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_exp = elems / (SFU_PER_CLOCK_SM * N_SMS * SM_CLOCK_HZ) * 1e3
+    t_fma = SCAN_BWD_FLOPS * elems / PEAK_FLOPS[torch.float32] * 1e3
+    t_ops = max(t_exp, t_fma)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _bwd_row(what, got, again, want, tol, call, plain, bound):
+    """Each gradient against the plain version's within ``tol`` of its
+    max, two launches bit-identical; the card time of the kernel and of
+    the plain version (CUDA-graph replay) beside the bound."""
+    rels, diff = [], 0.0
+    for g, w in zip(got, want):
+        m = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        diff = max(diff, err)
+        rels.append(err / m if m else err)
+    check(max(rels) <= tol, f"{what}: rel errs {[f'{r:.3g}' for r in rels]} > {tol}")
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          f"{what}: two launches differ")
+    ms = device_ms(call, reps=3)
+    plain_ms = device_ms(plain, reps=1)
+    bound_ms, bound_by = bound
+    return {"max_abs_err": diff, "max_rel_err": max(rels), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / ms}
+
+
+def wkv_bwd_case(B, S, H, hd, seed) -> dict:
+    """The WKV-6 backward kernels against `rwkv6_scan_backward_plain`, as
+    the model's training feeds them (no cotangent on S_final)."""
+    r, k, v, w, u = wkv_inputs(B, S, H, hd, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+    got = rwkv6_scan_backward_call(r, k, v, w, u, dy)
+    again = rwkv6_scan_backward_call(r, k, v, w, u, dy)
+    want = rwkv6_scan_backward_plain(r, k, v, w, u, dy)
+    torch.cuda.synchronize()
+    row = _bwd_row(f"WKV-6 backward at B={B} S={S} H={H}", got, again, want,
+                   WKV_BWD_MAX_REL_ERR,
+                   lambda: rwkv6_scan_backward_call(r, k, v, w, u, dy),
+                   lambda: rwkv6_scan_backward_plain(r, k, v, w, u, dy),
+                   wkv_bwd_bound(B, S, H, hd))
+    del got, again, want
+    torch.cuda.empty_cache()
+    return {"B": B, "S": S, "H": H, "hd": hd, "dtype": "float32", **row}
+
+
+def scan_bwd_case(B, S, di, ns, seed) -> dict:
+    """The selective-scan backward kernels against
+    `mamba_scan_backward_plain`, as Jamba's training feeds them (zero h0,
+    no cotangent on h_final, A drawn per element)."""
+    ops = scan_inputs(B, S, di, ns, seed, False, "random")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn((B, S, di), generator=gen, device="cuda")
+    c = SCAN_BWD_PLAIN_CHUNK
+    got = mamba_scan_backward_call(*ops, dy, chunk=c)
+    again = mamba_scan_backward_call(*ops, dy, chunk=c)
+    want = mamba_scan_backward_plain(*ops, dy, chunk=c)
+    torch.cuda.synchronize()
+    row = _bwd_row(f"scan backward at B={B} S={S} di={di}", got, again, want,
+                   SCAN_BWD_MAX_REL_ERR,
+                   lambda: mamba_scan_backward_call(*ops, dy, chunk=c),
+                   lambda: mamba_scan_backward_plain(*ops, dy, chunk=c),
+                   scan_bwd_bound(B, S, di, ns))
+    del got, again, want
+    torch.cuda.empty_cache()
+    return {"B": B, "S": S, "di": di, "ns": ns, "dtype": "float32", **row}
+
+
+def phase_recurrent_kernels() -> tuple[dict, dict]:
+    """Both backward kernels against their plain versions at the
+    training shapes (B 8 x 2048) and the LM phase's (B 2 x 2048); returns
+    the training shapes' rows."""
+    rwkv, jamba = load_config("rwkv6_7b"), load_config("jamba_v0_1_52b")
+    H, hd = rwkv.n_rwkv_heads, rwkv.rwkv_head_size
+    di, ns = jamba.d_inner, jamba.mamba_d_state
+    print("[train] wkv6 backward B S H hd | ms plain_ms bound_ms bound_by bound/ms | "
+          "max_abs_err max_rel_err  (card time, CUDA-graph replay; bound: "
+          f"{WKV_BWD_FLOPS} fp32 flops per state element and step at the FMA peak, "
+          f"or 9 (B, S, H, hd) fp32 tensors once at {PEAK_BYTES_S / 1e12:g} TB/s; "
+          f"tolerance {WKV_BWD_MAX_REL_ERR} of the max; two launches bit-identical)")
+    wkv_rows = []
+    for seed, B in enumerate((TRAIN_BATCH, LM_BATCH)):
+        row = wkv_bwd_case(B, TRAIN_SEQ, H, hd, 40 + seed)
+        wkv_rows.append(row)
+        print(f"[train] wkv6 backward {B} {TRAIN_SEQ} {H} {hd} | {row['ms']:.5f} "
+              f"{row['plain_ms']:.5f} {row['bound_ms']:.5f} {row['bound_by']} "
+              f"{row['bound_share']:.3f} | {row['max_abs_err']:.3g} "
+              f"{row['max_rel_err']:.3g}; bit-identical across launches")
+    print("[train] scan backward B S di ns | ms plain_ms bound_ms bound_by bound/ms | "
+          "max_abs_err max_rel_err  (card time, CUDA-graph replay; plain: chunk "
+          f"{SCAN_BWD_PLAIN_CHUNK}; bound: one exponential per state element and step "
+          f"on the SFUs at {SM_CLOCK_HZ / 1e9:g} GHz or {SCAN_BWD_FLOPS} fp32 flops at "
+          "the FMA peak, or 5 (B, S, di) fp32 tensors once; A per element; tolerance "
+          f"{SCAN_BWD_MAX_REL_ERR} of the max; two launches bit-identical)")
+    scan_rows = []
+    for seed, B in enumerate((TRAIN_BATCH, LM_BATCH)):
+        row = scan_bwd_case(B, TRAIN_SEQ, di, ns, 50 + seed)
+        scan_rows.append(row)
+        print(f"[train] scan backward {B} {TRAIN_SEQ} {di} {ns} | {row['ms']:.5f} "
+              f"{row['plain_ms']:.5f} {row['bound_ms']:.5f} {row['bound_by']} "
+              f"{row['bound_share']:.3f} | {row['max_abs_err']:.3g} "
+              f"{row['max_rel_err']:.3g}; bit-identical across launches")
+    return wkv_rows[0], scan_rows[0]
+
+
 def _rel(a, b) -> float:
     return abs(a - b) / abs(b)
 
@@ -2301,7 +2526,7 @@ def train_card_vs_cpu(cfg, seed) -> dict:
     for name, a, b in (("loss", c_loss, h_loss), ("grad norm", c_gn, h_gn)):
         check(_rel(a, b) <= CARD_CPU_REL_L2,
               f"2-layer train step card vs CPU: {name} {a} vs {b}")
-    print(f"[train] card vs CPU, {TRAIN_CPU_LAYERS} layers at full width, "
+    print(f"[train] {cfg.name}: card vs CPU, {TRAIN_CPU_LAYERS} layers at full width, "
           f"B={TRAIN_CPU_BATCH} S={TRAIN_CPU_SEQ}, one AdamW step: loss {c_loss:.6f} "
           f"vs {h_loss:.6f} (rel {_rel(c_loss, h_loss):.3g}), grad norm {c_gn:.6f} "
           f"vs {h_gn:.6f} (rel {_rel(c_gn, h_gn):.3g}); worst leaf rel L2: "
@@ -2356,10 +2581,13 @@ def train_step_metrics():
         train_mod.make_train_step = make
 
 
-def train_main_path(cfg) -> dict:
-    """`train_loop` at full width and depth: the main path of this phase.
-    Host clock at each step's end (its loss read back, so synchronised);
-    the last step runs under the profiler and is left out of ms per step."""
+def train_main_path(cfg, label="main path") -> dict:
+    """`train_loop` at full width (and at ``cfg``'s depth): a path of this
+    phase. Host clock at each step's end (its loss read back, so
+    synchronised); the last step runs under the profiler and is left out
+    of ms per step. Every kernel of the stack launches as its layers say:
+    each attention, RWKV and mamba layer's forward twice a step (once
+    more under remat) and its backward once."""
     marks, prof = [], profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
     def on_step(step, loss):
@@ -2382,7 +2610,7 @@ def train_main_path(cfg) -> dict:
     gc.collect()
     full_gc_ms = (time.perf_counter() - t_gc) * 1e3
     gc.freeze()
-    reset_counts()  # the main path starts here
+    reset_counts()  # the path starts here
     with train_step_metrics() as metrics, gc_pauses() as pauses:
         t0 = time.perf_counter()
         losses = train_mod.train_loop(
@@ -2397,41 +2625,46 @@ def train_main_path(cfg) -> dict:
     gnorms = [m["grad_norm"].item() for m in metrics]
     check(len(losses) == len(gnorms) == TRAIN_STEPS, "one loss per step")
     check(all(math.isfinite(x) for x in losses + gnorms),
-          f"finite losses {losses} and grad norms {gnorms}")
-    n_attn = sum(m == "attn" for m, _ in cfg.layer_plan())
-    for kernel, per_step in (("flash_attention", 2 * n_attn),
-                             ("flash_attention_backward", n_attn)):
-        check(launched[kernel] == per_step * TRAIN_STEPS,
-              f"{launched[kernel]} {kernel} launches in {TRAIN_STEPS} steps, want "
-              f"{per_step} per step")
-    for kernel in ("preemptible_matmul_window", "rwkv6_scan", "mamba_scan"):
-        check(launched[kernel] == 0, f"no {kernel} launches in training")
+          f"{cfg.name}: finite losses {losses} and grad norms {gnorms}")
+    plan = cfg.layer_plan()
+    n_attn, n_rwkv, n_mamba = (sum(m == kind for m, _ in plan)
+                               for kind in ("attn", "rwkv", "mamba"))
+    per_step = {"flash_attention": 2 * n_attn, "flash_attention_backward": n_attn,
+                "rwkv6_scan": 2 * n_rwkv, "rwkv6_scan_backward": n_rwkv,
+                "mamba_scan": 2 * n_mamba, "mamba_scan_backward": n_mamba,
+                "preemptible_matmul_window": 0}
+    for kernel, want in per_step.items():
+        check(launched[kernel] == want * TRAIN_STEPS,
+              f"{cfg.name}: {launched[kernel]} {kernel} launches in {TRAIN_STEPS} "
+              f"steps, want {want} per step")
     step_s = [b - a for a, b in zip(marks[:-2], marks[1:-1])]  # steps 1 .. N-2
     ms_step = sum(step_s) / len(step_s) * 1e3
     tokens_s = TRAIN_BATCH * TRAIN_SEQ / (ms_step / 1e3)
     card_us, n_card, top, own = _on_card(prof)
     busy = card_us / 1e3 / ms_step
-    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads of {cfg.head_dim}, vocab {cfg.vocab}, bf16 "
-          f"parameters, fp32 AdamW moments; global batch {TRAIN_BATCH} x seq "
-          f"{TRAIN_SEQ}, {TRAIN_STEPS} steps, lr {TRAIN_LR}, seed {TRAIN_SEED}")
-    print(f"[train] main path launches {launched} ({2 * n_attn} flash forward "
-          f"per step, one per attention layer and one more under remat; "
-          f"{n_attn} backward)")
-    print(f"[train] losses {[round(x, 4) for x in losses]}")
-    print(f"[train] grad norms {[round(x, 4) for x in gnorms]}")
-    print(f"[train] step 0 (with set-up and first calls) {(marks[0] - t0) * 1e3:.3f} "
-          f"ms; steps 1-{TRAIN_STEPS - 2} {ms_step:.3f} ms per step "
-          f"(each {[round(x * 1e3, 3) for x in step_s]}), {tokens_s:.1f} tokens/s; "
-          f"card peak memory {peak_gb:.3f} GB")
-    print(f"[train] host: {tracked} objects tracked by the garbage collector "
-          f"before the main path, one full collection of them {full_gc_ms:.3f} ms, "
-          f"then frozen; {len(pauses)} collections in the main path "
+    n_moe = sum(f == "moe" for _, f in plan)
+    print(f"[train] {label}: {cfg.name}: {cfg.n_layers} layers ({n_attn} attention, "
+          f"{n_mamba} mamba, {n_rwkv} RWKV; {n_moe} MoE ffns), d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab}, {cfg.param_counts()['total'] / 1e9:.3f} B parameters "
+          f"(the config's count), bf16, fp32 AdamW moments; global batch {TRAIN_BATCH} x "
+          f"seq {TRAIN_SEQ}, {TRAIN_STEPS} steps, lr {TRAIN_LR}, seed {TRAIN_SEED}")
+    print(f"[train] {cfg.name}: launches {launched} (per step: "
+          + ", ".join(f"{k} {v}" for k, v in per_step.items() if v)
+          + "; each forward twice under remat)")
+    print(f"[train] {cfg.name}: losses {[round(x, 4) for x in losses]}")
+    print(f"[train] {cfg.name}: grad norms {[round(x, 4) for x in gnorms]}")
+    print(f"[train] {cfg.name}: step 0 (with set-up and first calls) "
+          f"{(marks[0] - t0) * 1e3:.3f} ms; steps 1-{TRAIN_STEPS - 2} {ms_step:.3f} ms "
+          f"per step (each {[round(x * 1e3, 3) for x in step_s]}), {tokens_s:.1f} "
+          f"tokens/s; card peak memory {peak_gb:.3f} GB")
+    print(f"[train] {cfg.name}: host: {tracked} objects tracked by the garbage "
+          f"collector before the path, one full collection of them {full_gc_ms:.3f} "
+          f"ms, then frozen; {len(pauses)} collections in the path "
           f"took {sum(ms for _, ms in pauses):.3f} ms (longest "
           f"{max((ms for _, ms in pauses), default=0.0):.3f} ms, generation-2 "
           f"collections {sum(g == 2 for g, _ in pauses)}); allocator retries "
           f"{retries}")
-    print(f"[train] step {TRAIN_STEPS - 1} under the profiler: card busy "
+    print(f"[train] {cfg.name}: step {TRAIN_STEPS - 1} under the profiler: card busy "
           f"{card_us / 1e3:.3f} ms of {ms_step:.3f} ms ({busy * 100:.2f}%) in "
           f"{n_card} kernels and copies; top:")
     for t_us, cnt, key in top:
@@ -2439,14 +2672,20 @@ def train_main_path(cfg) -> dict:
     for kernel, (t_us, cnt) in own.items():
         print(f"[train]   port kernel {kernel}: {t_us / 1e3:.3f} ms in {cnt} "
               f"({t_us / card_us * 100:.2f}% of the card time)")
-    passes = {k: own.get(k, (0.0, 0)) for k in BWD_PASSES}
-    print("[train] backward passes in the profiled step: " + "; ".join(
-        f"{k} {t_us / 1e3:.3f} ms in {cnt}" for k, (t_us, cnt) in passes.items())
-        + f"; together {sum(t for t, _ in passes.values()) / 1e3:.3f} ms")
-    return {"launches": launched, "losses": losses, "grad_norms": gnorms,
-            "ms_per_step": ms_step, "tokens_per_s": tokens_s, "peak_gb": peak_gb,
-            "busy_share": busy,
-            "backward_ms": {k: t_us / 1e3 for k, (t_us, _) in passes.items()}}
+    backward = {}
+    for group, names in (("flash attention", BWD_PASSES), ("WKV-6", WKV_BWD_PASSES),
+                         ("selective scan", SCAN_BWD_PASSES)):
+        passes = {k: own.get(k, (0.0, 0)) for k in names}
+        if not any(cnt for _, cnt in passes.values()):
+            continue
+        backward.update({k: t_us / 1e3 for k, (t_us, _) in passes.items()})
+        print(f"[train] {cfg.name}: {group} backward passes in the profiled step: "
+              + "; ".join(f"{k} {t_us / 1e3:.3f} ms in {cnt}"
+                          for k, (t_us, cnt) in passes.items())
+              + f"; together {sum(t for t, _ in passes.values()) / 1e3:.3f} ms")
+    return {"launches": launched, "launches_per_step": per_step, "losses": losses,
+            "grad_norms": gnorms, "ms_per_step": ms_step, "tokens_per_s": tokens_s,
+            "peak_gb": peak_gb, "busy_share": busy, "backward_ms": backward}
 
 
 def train_resume() -> dict:
@@ -2487,6 +2726,15 @@ def phase_train() -> tuple[dict, dict]:
           f"{fwd['ms']:.5f} ms without lse, {fwd['lse_ms']:.5f} ms with lse "
           "(card time, CUDA-graph replay); o the same bits both ways; lse vs "
           f"plain max abs err {fwd['lse_err']:.3g} (<= {FLASH_LSE_TOL})")
+    fw = flash_case(TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                    torch.bfloat16, 28)
+    print(f"[train] flash forward at StableLM's training shape B={TRAIN_BATCH} "
+          f"S={TRAIN_SEQ} H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.head_dim} bf16: "
+          f"{fw['ms']:.5f} ms (card time, CUDA-graph replay, no lse), plain "
+          f"{fw['plain_ms']:.5f} ms, SDPA {fw['library_ms']:.5f} ms; bound "
+          f"{fw['bound_ms']:.5f} ms ({fw['bound_by']}), split floor "
+          f"{fw['split_floor_ms']:.5f} ms; max abs err {fw['max_abs_err']:.3g}, "
+          f"{fw['tol_ratio']:.3g} x the limit")
     print("[train] flash backward B S H/Hkv hd dtype | ms plain_ms sdpa_bwd_ms "
           "bound_ms bound_by split_floor_ms | max_abs_err err/limit  (ms: card "
           "time, CUDA-graph replay, the forward's lse given; sdpa_bwd_ms: "
@@ -2512,11 +2760,25 @@ def phase_train() -> tuple[dict, dict]:
               f"{row['bound_ms']:.5f} {row['bound_by']} {row['split_floor_ms']:.5f} | "
               f"{row['max_abs_err']:.3g} {row['tol_ratio']:.3g}; bit-identical "
               "across launches")
+    wkv_row, scan_row = phase_recurrent_kernels()
     cpu = train_card_vs_cpu(cfg, TRAIN_SEED + 1)
+    rwkv_cpu = train_card_vs_cpu(load_config("rwkv6_7b"), TRAIN_SEED + 2)
     main = train_main_path(cfg)
     resume = train_resume()
+    recurrent = {}
+    for name, n_layers in RECURRENT_TRAIN:
+        full = load_config(name)
+        cut = dataclasses.replace(full, n_layers=n_layers)
+        print(f"[train] {name}: depth cut to {n_layers} of {full.n_layers} layers at "
+              f"full width ({cut.param_counts()['total'] / 1e9:.2f} of "
+              f"{full.param_counts()['total'] / 1e9:.2f} B parameters by the "
+              f"config's count); global batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+        recurrent[name] = train_main_path(cut, label="recurrent path")
     print(f"[train] phase: {time.perf_counter() - t0:.3f} s")
-    return rows[0], dict(main, card_vs_cpu=cpu, resume=resume, forward_lse=fwd)
+    return rows[0], dict(main, card_vs_cpu=cpu, resume=resume, forward_lse=fwd,
+                         stablelm_forward=fw,
+                         rwkv_card_vs_cpu=rwkv_cpu, recurrent=recurrent,
+                         wkv_bwd_row=wkv_row, scan_bwd_row=scan_row)
 
 
 def card_line() -> str:
@@ -2554,6 +2816,9 @@ def previous_line(entries) -> str:
     its earlier time as copied from PERF.md (``PREVIOUS_MS``)."""
     parts = []
     for e in entries:
+        if e["name"] not in PREVIOUS_MS:  # its first version
+            parts.append(f"{e['name']} {e['ms']:.5f} ms now, no earlier time")
+            continue
         prev_ms, prev_from = PREVIOUS_MS[e["name"]]
         parts.append(f"{e['name']} {e['ms']:.5f} ms now, {prev_ms} ms before "
                      f"({prev_from})")
@@ -2615,9 +2880,25 @@ def main() -> int:
     )
     bwd.update(split_floor_ms=bwd_row["split_floor_ms"],
                shape={k: bwd_row[k] for k in ("B", "S", "H", "Hkv", "hd", "dtype")})
-    print(previous_line([pmm, flash, wkv, scan, bwd]))
+    rwkv_train = train["recurrent"]["rwkv6_7b"]["launches"]
+    jamba_train = train["recurrent"]["jamba_v0_1_52b"]["launches"]
+    wkv_bwd = kernel_entry(
+        "rwkv6_scan_backward", "src/repro_torch/csrc/rwkv6_scan_bwd.cu",
+        "src/repro/models/rwkv.py:109", "fma",
+        rwkv_train["rwkv6_scan_backward"], train["wkv_bwd_row"],
+    )
+    wkv_bwd["shape"] = {k: train["wkv_bwd_row"][k] for k in ("B", "S", "H", "hd", "dtype")}
+    scan_bwd = kernel_entry(
+        "mamba_scan_backward", "src/repro_torch/csrc/mamba_scan_bwd.cu",
+        "src/repro/models/ssm.py:99", "fma",
+        jamba_train["mamba_scan_backward"], train["scan_bwd_row"],
+    )
+    scan_bwd["shape"] = {k: train["scan_bwd_row"][k]
+                         for k in ("B", "S", "di", "ns", "dtype")}
+    entries = [pmm, flash, wkv, scan, bwd, wkv_bwd, scan_bwd]
+    print(previous_line(entries))
     print(json.dumps({"conformance": conf}))
-    print(json.dumps({"kernels": [pmm, flash, wkv, scan, bwd]}))
+    print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({
         "ok": True,

@@ -10,8 +10,7 @@ import importlib
 from repro_torch.configs.base import ArchConfig, smoke_config
 
 #: every configuration of the JAX package (module names); the two stub
-#: frontends (internvl2_76b, musicgen_medium) load but do not build
-#: (`models.lm.check_supported`)
+#: frontends (internvl2_76b, musicgen_medium) take precomputed embeddings
 CONFIG_NAMES = (
     "mistral_nemo_12b", "rwkv6_7b", "jamba_v0_1_52b", "dbrx_132b",
     "granite_moe_3b_a800m", "minitron_4b", "qwen1_5_32b", "stablelm_1_6b",

@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA loads of
-// 4-D tensor maps, wgmma descriptors and products, the SFU exponential and
-// bf16 packing. Each .cu file compiles into its own library, so every
+// Hopper building blocks shared by the port's kernels: mbarriers, TMA
+// loads of 4-D tensor maps, wgmma descriptors and products, the SFU
+// exponential and bf16 packing (the flash-attention kernels), and 16-byte
+// cp.async copies and float4 loads (the WKV-6 and selective-scan
+// backwards). Each .cu file compiles into its own library, so every
 // function here is inline.
 #pragma once
 
@@ -19,6 +20,27 @@ constexpr uint32_t kAtom = 1024; // swizzle atom: 8 rows
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !valid (the
+// source is then not read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {

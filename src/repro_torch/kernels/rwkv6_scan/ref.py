@@ -56,3 +56,61 @@ def rwkv6_scan_plain(r, k, v, w, u, *, chunk: int = 64):
             "bjhd,bjhe->bhde", k_scale, vc
         )
     return torch.cat(ys, dim=1), state
+
+
+def rwkv6_scan_backward_plain(r, k, v, w, u, dy, ds_final=None, *,
+                              chunk: int = 32):
+    """Gradient of WKV-6 from a zero state, step by step in fp32.
+
+    r, k, v, w, dy: (B, S, H, hd); u: (H, hd); ds_final: (B, H, hd, hd),
+    the cotangent of S_final (zero when None). With G_t the adjoint of
+    the state after step t (G_{S-1} = ds_final,
+    G_{t-1} = diag(w_t) G_t + r_t dy_tᵀ):
+
+        dr_t = S_{t-1} dy_t + u k_t (v_t . dy_t)
+        dk_t = G_t v_t + u r_t (v_t . dy_t)
+        dv_t = G_tᵀ k_t + (sum_i r_t u k_t) dy_t
+        dw_t = rowsum(G_t * S_{t-1})
+        du   = sum over b, t of r_t k_t (v_t . dy_t)
+
+    The states are kept at the start of every ``chunk`` steps and each
+    chunk's are recomputed in the reverse sweep, so memory is
+    S / chunk + 2 * chunk states. Returns (dr, dk, dv, dw, du), float32,
+    in the inputs' layouts.
+    """
+    B, S, H, hd = r.shape
+    rf, kf, vf, wf, dyf = (t.float().transpose(1, 2) for t in (r, k, v, w, dy))
+    uf = u.float()[None, :, None, :]  # (1, H, 1, hd)
+    state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    starts = []
+    for c0 in range(0, S, chunk):
+        starts.append(state)
+        for t in range(c0, min(c0 + chunk, S)):
+            state = wf[:, :, t, :, None] * state + (
+                kf[:, :, t, :, None] * vf[:, :, t, None, :])
+    G = (torch.zeros_like(state) if ds_final is None
+         else ds_final.float().clone())
+    vdy = (vf * dyf).sum(-1, keepdim=True)  # (B, H, S, 1)
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    for ci in reversed(range(len(starts))):
+        c0, c1 = ci * chunk, min(ci * chunk + chunk, S)
+        prev, state = [], starts[ci]
+        for t in range(c0, c1):
+            prev.append(state)  # S_{t-1}
+            state = wf[:, :, t, :, None] * state + (
+                kf[:, :, t, :, None] * vf[:, :, t, None, :])
+        gs = [None] * (c1 - c0)
+        for t in range(c1 - 1, c0 - 1, -1):
+            gs[t - c0] = G  # G_t
+            G = wf[:, :, t, :, None] * G + rf[:, :, t, :, None] * dyf[:, :, t, None, :]
+        prev, gs = torch.stack(prev, 2), torch.stack(gs, 2)  # (B, H, c, hd, hd)
+        sl = slice(c0, c1)
+        r_c, k_c, v_c, dy_c, vdy_c = (t[:, :, sl] for t in (rf, kf, vf, dyf, vdy))
+        dr[:, :, sl] = torch.einsum("bhcij,bhcj->bhci", prev, dy_c) + uf * k_c * vdy_c
+        dk[:, :, sl] = torch.einsum("bhcij,bhcj->bhci", gs, v_c) + uf * r_c * vdy_c
+        dv[:, :, sl] = (torch.einsum("bhcij,bhci->bhcj", gs, k_c)
+                        + (r_c * uf * k_c).sum(-1, keepdim=True) * dy_c)
+        dw[:, :, sl] = (gs * prev).sum(-1)
+        del prev, gs
+    du = (rf * kf * vdy).sum((0, 2))
+    return (*(t.transpose(1, 2) for t in (dr, dk, dv, dw)), du)

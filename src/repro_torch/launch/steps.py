@@ -45,10 +45,8 @@ def make_train_step(
     is split on the batch axis and the micro-batches run in order,
     accumulating fp32 grads that are divided by the count afterwards;
     the metrics are the micro-batches' means. Weight decay goes to the
-    leaves the JAX package decays (`lm.decay_mask`). Configs with
-    recurrent mixers raise (`lm.check_trainable`).
+    leaves the JAX package decays (`lm.decay_mask`).
     """
-    lm.check_trainable(cfg)
 
     def train_step(params, opt_state, batch):
         if micro_batches == 1:
@@ -80,7 +78,6 @@ def make_train_step(
 
 def make_prefill_step(cfg: ArchConfig, cache_len: int):
     """(params, batch) -> (last-token logits, cache)."""
-    lm.check_supported(cfg)
 
     def prefill_step(params, batch):
         return lm.prefill(params, cfg, batch, cache_len)
@@ -91,7 +88,6 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int):
 def make_serve_step(cfg: ArchConfig, *, kv_quant: bool = False):
     """(params, cache, inputs, pos) -> (logits, cache); with ``kv_quant``
     the cache's attention layers are int8 with bf16 scales."""
-    lm.check_supported(cfg)
 
     def serve_step(params, cache, inputs, pos):
         return lm.decode_step(params, cfg, cache, inputs, pos, kv_quant=kv_quant)

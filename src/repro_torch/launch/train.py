@@ -23,6 +23,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import CONFIG_NAMES, ArchConfig, load_config, smoke_config
@@ -57,7 +58,7 @@ def train_loop(
     horizon = schedule_steps or steps
     opt_cfg = AdamWConfig(lr_peak=lr, warmup_steps=max(10, horizon // 20),
                           total_steps=horizon)
-    step_fn = make_train_step(cfg, opt_cfg)  # refuses what cannot train
+    step_fn = make_train_step(cfg, opt_cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = lm.init_params(gen, cfg, torch.bfloat16, device)
     opt_state = adamw_init(params)
@@ -86,6 +87,13 @@ def train_loop(
         raw = ds.batch(step)
         batch = {name: torch.from_numpy(raw[name]).to(device)
                  for name in ("tokens", "labels", "mask")}
+        if cfg.frontend != "none":
+            # stub frontends consume precomputed embeddings; derive a
+            # deterministic one-hot embedding from the token ids, as the
+            # reference's launch/train.py does
+            emb = F.one_hot(batch.pop("tokens").long() % cfg.frontend_dim,
+                            cfg.frontend_dim).to(torch.bfloat16)
+            batch = {"embeds": emb, **batch}
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])
         losses.append(loss)

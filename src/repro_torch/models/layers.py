@@ -317,3 +317,18 @@ def moe_dropless(p, x, cfg):
 
 #: group-size read-backs to the host since the count was last set to 0
 moe_dropless.host_reads = 0
+
+
+def moe_aux_loss(p, x, cfg):
+    """Switch-style load-balancing loss of one MoE layer's router, fp32:
+    ``E * sum_e frac_e * imp_e``, with frac the share of tokens whose
+    top-1 expert is e and imp the mean router probability of e. Returned
+    on its own, as in the reference, which adds it to no loss."""
+    B, S, d = x.shape
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    logits = xn.reshape(B * S, d).float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    top1 = torch.argmax(logits, dim=-1)
+    frac = F.one_hot(top1, cfg.n_experts).float().mean(0)
+    imp = probs.mean(0)
+    return cfg.n_experts * (frac * imp).sum()

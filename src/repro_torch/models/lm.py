@@ -30,7 +30,7 @@ Entry points
 - ``backbone(params, cfg, batch)``          final hidden states (B, S, d),
   differentiable
 - ``loss_fn(params, cfg, batch)``           (loss, metrics), S-chunked CE,
-  differentiable; attention-only stacks (`check_trainable`)
+  differentiable
 - ``forward(params, cfg, batch)``           logits (B, S, V), fp32
 - ``init_cache(cfg, B, cache_len)``         zero decode cache
 - ``prefill(params, cfg, batch, L)``        (last-token logits, cache)
@@ -40,9 +40,17 @@ Entry points
 ``forward``, ``prefill`` and ``decode_step`` run under
 ``torch.inference_mode()``.
 
-Inputs: ``batch["tokens"]`` (B, S) integer tokens. The JAX package's
-stub modality frontends (``batch["embeds"]``, the VLM and audio
-configs) are not ported and raise here.
+Inputs: ``batch["tokens"]`` (B, S) integer tokens, or, for the stub
+modality frontends (the VLM and audio configs, ``cfg.frontend !=
+"none"``), ``batch["embeds"]`` (B, S, frontend_dim): precomputed
+embeddings that ``params["frontend_proj"]`` lifts to d_model, with an
+untied ``lm_head``. Decode takes ``{"embeds": (B, frontend_dim)}``
+then.
+
+Every mixer trains: attention through the flash kernels' autograd
+function, RWKV-6 and mamba through those of WKV-6 and the selective
+scan (`kernels.rwkv6_scan.ops`, `kernels.mamba_scan.ops`), each a
+forward kernel with hand-written backward kernels on the card.
 """
 from __future__ import annotations
 
@@ -56,41 +64,10 @@ from repro_torch.models import ssm as M
 from repro_torch.models.module import dense_init, embed_init, ones
 from repro_torch.tree import tree_map
 
-#: where what the port does not serve yet is queued
-NEXT_SLICE = "ROADMAP.md (the stub frontends of the VLM and audio configs)"
-#: where the backward kernels that training the recurrent mixers needs
-#: are queued
-TRAIN_NEXT_SLICE = ("ROADMAP.md slice 9b (backward kernels for WKV-6 and the "
-                    "selective scan)")
-
 _MIXER_INIT = {"attn": L.attn_init, "mamba": M.mamba_init,
                "rwkv": R.rwkv_tmix_init}
 _FFN_INIT = {"dense": L.mlp_init, "moe": L.moe_init,
              "rwkv_cmix": R.rwkv_cmix_init}
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise `NotImplementedError` for a stub modality frontend: every
-    layer kind is served, the frontends are not ported."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported; see "
-            f"{NEXT_SLICE}"
-        )
-
-
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise `NotImplementedError` unless every mixer is attention: on the
-    card the recurrent mixers run through forward-only kernels (WKV-6,
-    the selective scan), so their training waits for backward kernels."""
-    check_supported(cfg)
-    recurrent = sorted({m for m, _ in cfg.layer_plan()} - {"attn"})
-    if recurrent:
-        raise NotImplementedError(
-            f"{cfg.name}: training {' and '.join(recurrent)} layers needs "
-            f"backward kernels the port does not have yet; see "
-            f"{TRAIN_NEXT_SLICE}"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -99,8 +76,9 @@ def check_trainable(cfg: ArchConfig) -> None:
 def init_params(gen, cfg: ArchConfig, dtype=torch.bfloat16, device="cuda"):
     """Random parameters drawn from ``gen`` (a ``torch.Generator`` on
     ``device``): truncated-normal fan-in matrices drawn in fp32 and cast
-    to ``dtype``, as the JAX package's initialisers."""
-    check_supported(cfg)
+    to ``dtype``, as the JAX package's initialisers. A stub-frontend
+    config gets ``frontend_proj`` (frontend_dim, d_model) and an untied
+    ``lm_head`` in place of the embedding."""
     blocks = [
         {
             "mixer": _MIXER_INIT[mixer](gen, cfg, dtype, device=device),
@@ -109,12 +87,15 @@ def init_params(gen, cfg: ArchConfig, dtype=torch.bfloat16, device="cuda"):
         for mixer, ffn in cfg.layer_plan()
     ]
     d = cfg.d_model
-    params = {
-        "blocks": blocks,
-        "final_norm": ones((d,), dtype, device=device),
-        "embed": embed_init(gen, cfg.vocab, d, dtype, device=device),
-    }
-    if not cfg.tie_embeddings:
+    params = {"blocks": blocks, "final_norm": ones((d,), dtype, device=device)}
+    if cfg.frontend == "none":
+        params["embed"] = embed_init(gen, cfg.vocab, d, dtype, device=device)
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(gen, d, cfg.vocab, dtype,
+                                           device=device)
+    else:
+        params["frontend_proj"] = dense_init(gen, cfg.frontend_dim, d, dtype,
+                                             device=device)
         params["lm_head"] = dense_init(gen, d, cfg.vocab, dtype, device=device)
     return params
 
@@ -178,8 +159,17 @@ def _apply_block_decode(kind, pm, pf, x, cfg, cache, pos, kv_quant):
 # ---------------------------------------------------------------------------
 # embedding / head
 # ---------------------------------------------------------------------------
+def _embed_inputs(params, cfg: ArchConfig, inputs):
+    """Token embeddings, or the stub frontend's embeddings lifted to
+    d_model by a plain product (the reference's, outside any kernel)."""
+    if cfg.frontend == "none":
+        return params["embed"][inputs["tokens"]]
+    proj = params["frontend_proj"]
+    return inputs["embeds"].to(proj.dtype) @ proj
+
+
 def _head(params, cfg: ArchConfig):
-    if cfg.tie_embeddings:
+    if cfg.frontend == "none" and cfg.tie_embeddings:
         return params["embed"].T
     return params["lm_head"]
 
@@ -221,8 +211,7 @@ def backbone(params, cfg: ArchConfig, batch, *, remat: bool = True):
     dropped after the forward and recomputed in the backward, as the JAX
     package's ``jax.checkpoint`` over its scan body. With grad off the
     boundary changes nothing and is not taken."""
-    check_supported(cfg)
-    x = params["embed"][batch["tokens"]]
+    x = _embed_inputs(params, cfg, batch)
     positions = _positions(x)
     plan, n_pat = cfg.layer_plan(), len(cfg.pattern())
     use_remat = remat and torch.is_grad_enabled()
@@ -268,7 +257,6 @@ def loss_fn(params, cfg: ArchConfig, batch, *, remat: bool = True):
     chunk, whatever ``remat``), and the chunk totals are summed in order.
     Returns (loss, {"loss", "tokens"}) as fp32 scalar tensors.
     """
-    check_trainable(cfg)
     x = backbone(params, cfg, batch, remat=remat)
     head = _head(params, cfg)
     labels = batch["labels"].long()
@@ -323,7 +311,6 @@ def _block_cache_shape(kind, cfg: ArchConfig, B: int, cache_len: int,
 def cache_spec(cfg: ArchConfig, B: int, cache_len: int, kv_quant: bool = False):
     """Per layer, ``{name: (shape, dtype)}`` of the decode cache; with
     ``kv_quant`` attention layers hold int8 K/V and bf16 scales."""
-    check_supported(cfg)
     return [
         _block_cache_shape(kind, cfg, B, cache_len, kv_quant)
         for kind in cfg.layer_plan()
@@ -347,8 +334,7 @@ def init_cache(cfg: ArchConfig, B: int, cache_len: int, *, device="cuda"):
 @torch.inference_mode()
 def prefill(params, cfg: ArchConfig, batch, cache_len: int):
     """Run the full prompt; return (last-token logits (B, V) fp32, cache)."""
-    check_supported(cfg)
-    x = params["embed"][batch["tokens"]]
+    x = _embed_inputs(params, cfg, batch)
     positions = _positions(x)
     cache = []
     for kind, blk in zip(cfg.layer_plan(), params["blocks"]):
@@ -365,7 +351,8 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int):
 def decode_step(params, cfg: ArchConfig, cache, inputs, pos, *, kv_quant=False):
     """One new token for every sequence in the batch.
 
-    ``inputs``: {"tokens": (B,)}; ``pos``: (B,) integer index the new
+    ``inputs``: {"tokens": (B,)} or {"embeds": (B, frontend_dim)};
+    ``pos``: (B,) integer index the new
     token is written at (= current sequence length). Returns (logits
     (B, V) fp32, new_cache). Attention layers write the new K/V into the
     given cache tensors in place (`layers.attention_decode`; with
@@ -373,8 +360,7 @@ def decode_step(params, cfg: ArchConfig, cache, inputs, pos, *, kv_quant=False):
     `layers.attention_decode_q8`); mamba and RWKV layers return new state
     tensors.
     """
-    check_supported(cfg)
-    x = params["embed"][inputs["tokens"]][:, None, :]
+    x = _embed_inputs(params, cfg, inputs)[:, None, :]
     new_cache = []
     for kind, blk, c in zip(cfg.layer_plan(), params["blocks"], cache):
         x, c = _apply_block_decode(kind, blk["mixer"], blk["ffn"], x, cfg, c,

@@ -9,7 +9,10 @@ Recurrence per head (hd = head size), per key-channel ``i``:
 with data-dependent decay ``w_t = exp(-exp(logit_t))`` produced by a
 low-rank projection of the shifted input. The full-sequence recurrence
 goes through `rwkv6_scan`: the hand-written step-by-step CUDA kernel on
-the card, the chunked (GLA) form of the JAX model on the CPU. Decay
+the card, the chunked (GLA) form of the JAX model on the CPU; under
+grad its gradient is the hand-written backward kernels
+(``csrc/rwkv6_scan_bwd.cu``) on the card and their plain version on
+the CPU. Decay
 logits are clamped so that the chunked form's cumulative ratios stay in
 fp32 range for chunks of up to 64. The one-token decode functions are
 plain tensor ops, as in the reference.

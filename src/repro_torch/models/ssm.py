@@ -4,7 +4,10 @@
 The full-sequence selective scan ``h_t = exp(dt_t A) h_{t-1} + dt_t x_t
 B_t`` goes through `mamba_scan`: the hand-written step-by-step CUDA
 kernel on the card, the chunked scan of the JAX model (chunks of
-``cfg.mamba_chunk``, chained by the carried state) on the CPU.
+``cfg.mamba_chunk``, chained by the carried state) on the CPU; under
+grad its gradient is the hand-written backward kernels
+(``csrc/mamba_scan_bwd.cu``) on the card and their plain version on the
+CPU.
 
 Decode keeps ``(conv, ssm)`` states and advances one token in plain
 tensor code, as the reference does. The bf16 rounding points are the

@@ -110,7 +110,7 @@ def test_percentile_summary_matches_reference():
 def test_kernel_build_is_content_addressed():
     assert _build.source_names() == [
         "flash_attention", "flash_attention_bwd", "mamba_scan",
-        "preemptible_matmul", "rwkv6_scan",
+        "mamba_scan_bwd", "preemptible_matmul", "rwkv6_scan", "rwkv6_scan_bwd",
     ]
     path = _build.library_path("preemptible_matmul")
     assert path.parent == _build.BUILD_DIR
@@ -195,3 +195,26 @@ def test_chip_smoke_bounds_price_the_units_that_run_the_products():
     # the backward: five products of 2 hd flops per causal pair
     bound, by = smoke.bwd_bound(8, 2048, 32, 32, 64, 2)
     assert by == "operations" and round(bound, 5) == 0.34759
+
+
+def test_chip_smoke_recurrent_backward_bounds():
+    """The WKV-6 backward's bound at RWKV-6-7B's training shape is its 12
+    fp32 flops per state element and step at the FMA peak (the 9 tensors'
+    bytes take less; dw's walk is O(hd) a step and adds none); the scan backward's at Jamba's is its 5 (B, S, di)
+    tensors' bytes (one exponential per state element and step on the
+    SFUs, and its flops, take less). Every entry of the ``kernels`` line
+    without an earlier time says so on the text line."""
+    smoke = _load_smoke()
+    bound, by = smoke.wkv_bwd_bound(8, 2048, 64, 64)
+    flops = 12.0 * 8 * 2048 * 64 * 64 * 64
+    assert by == "operations" and bound == pytest.approx(flops / 67e12 * 1e3)
+    assert round(bound, 5) == 0.76925
+    bound, by = smoke.scan_bwd_bound(8, 2048, 8192, 16)
+    assert by == "bytes" and round(bound, 5) == 0.80537
+    row = {"max_abs_err": 0.0, "ms": 5.0, "plain_ms": 200.0, "bound_ms": 0.9,
+           "bound_by": "operations", "library_ms": None}
+    entry = smoke.kernel_entry("rwkv6_scan_backward", "src/x.cu", "rwkv.py:109",
+                               "fma", 8, row)
+    assert "rwkv6_scan_backward" not in smoke.PREVIOUS_MS
+    assert "rwkv6_scan_backward 5.00000 ms now, no earlier time" in (
+        smoke.previous_line([entry]))

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (preemptible matmul, flash attention and its
-backward, WKV-6, the selective scan) against their plain versions, on the
-card. Marked ``cuda``; each test skips, with its reason, where no card
+"""The port's CUDA kernels (preemptible matmul, flash attention, WKV-6,
+the selective scan, and the backward kernels of the last three) against
+their plain versions, on the card. Marked ``cuda``; each test skips, with its reason, where no card
 is visible. Imports neither JAX nor the JAX package, so it runs where
 only PyTorch is installed::
 
@@ -26,7 +26,13 @@ twice on the same inputs, the result is held bit for bit. Selective scan:
 the kernel's step-by-step recurrence against the plain chunked scan,
 which multiplies the same decays in another order (1e-4 of the max, the
 reference's tolerance between its kernel and its oracle); held bit for
-bit where the kernel must ignore another batch row or run twice. int8-KV
+bit where the kernel must ignore another batch row or run twice. The
+backward kernels of WKV-6 and the selective scan against their plain
+versions (the plain WKV-6 backward a step-by-step recurrence, the plain
+scan backward chunked scans): 1e-4 of the max, the forwards' bound, and
+bit for bit across launches and where they must ignore another batch
+row or head; smoke RWKV-6 and Jamba train steps on the card against the
+CPU's as the StableLM one. int8-KV
 decode step: the card's bf16-operand, fp32-result products against the
 CPU's fp32 products of the same bf16-rounded operands, which differ only
 in summation order (1e-5 of the max in fp32; relative L2 3e-2 in bf16,
@@ -60,17 +66,32 @@ from repro_torch.kernels.flash_attention.ref import (
     attention_plain,
     tol_ratio,
 )
+from repro_torch.kernels.mamba_scan.kernel import BWD_CHUNK as SCAN_BWD_CHUNK
 from repro_torch.kernels.mamba_scan.kernel import STAGE_STEPS as SCAN_STAGE_STEPS
-from repro_torch.kernels.mamba_scan.kernel import mamba_scan_call
-from repro_torch.kernels.mamba_scan.ref import mamba_scan_plain
+from repro_torch.kernels.mamba_scan.kernel import (
+    mamba_scan_backward_call,
+    mamba_scan_call,
+)
+from repro_torch.kernels.mamba_scan.ref import (
+    mamba_scan_backward_plain,
+    mamba_scan_plain,
+)
 from repro_torch.kernels.preemptible_matmul import grid_geometry, matmul_resumable
 from repro_torch.kernels.preemptible_matmul.kernel import matmul_window_call
 from repro_torch.kernels.preemptible_matmul.ref import (
     matmul_ref,
     matmul_window_plain,
 )
-from repro_torch.kernels.rwkv6_scan.kernel import STAGE_STEPS, rwkv6_scan_call
-from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_plain
+from repro_torch.kernels.rwkv6_scan.kernel import BWD_CHUNK as WKV_BWD_CHUNK
+from repro_torch.kernels.rwkv6_scan.kernel import (
+    STAGE_STEPS,
+    rwkv6_scan_backward_call,
+    rwkv6_scan_call,
+)
+from repro_torch.kernels.rwkv6_scan.ref import (
+    rwkv6_scan_backward_plain,
+    rwkv6_scan_plain,
+)
 from repro_torch.models import layers as L
 
 BLOCK = (128, 128, 128)
@@ -832,3 +853,270 @@ def test_wallclock_case_on_card_at_the_reference_test_settings(card):
         assert 0.0 < row.measured_median <= row.measured_max
         assert 0.0 < row.predicted_des_max <= row.predicted_bound
         assert row.in_flight <= cfg.backlog_limit
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels of WKV-6 and the selective scan
+# ---------------------------------------------------------------------------
+def _rel0(x, y):
+    """`_rel`, with an all-zero ``y`` (dw at S 1) held exactly."""
+    m = y.abs().max().item()
+    return (x - y).abs().max().item() / m if m else x.abs().max().item()
+
+
+def _wkv_cotangents(card, B, S, H, seed, with_ds):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    dy = torch.randn((B, S, H, 64), generator=gen, device=card)
+    ds = torch.randn((B, H, 64, 64), generator=gen, device=card) if with_ds else None
+    return dy, ds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,S,H,with_ds",
+    [(1, 40, 2, True), (2, 100, 3, True), (1, 1, 2, True),
+     # S at and around one stash interval of the kernel, and past 2048
+     (1, WKV_BWD_CHUNK - 1, 2, False), (1, WKV_BWD_CHUNK, 2, True),
+     (1, WKV_BWD_CHUNK + 1, 2, True), (1, 2049, 2, False),
+     (2, 256, 64, False)],  # the main path's B·H
+)
+def test_wkv6_backward_kernel_matches_plain(card, B, S, H, with_ds):
+    """Every gradient within 1e-4 of the max of the plain step-by-step
+    backward's (the forward's bound), with and without a cotangent on
+    S_final, ragged S; one launch count per call."""
+    ops = _wkv_inputs(card, B, S, H, 64, S + 1)
+    dy, ds = _wkv_cotangents(card, B, S, H, S + 2, with_ds)
+    before = rwkv6_scan_backward_call.launches
+    got = rwkv6_scan_backward_call(*ops, dy, ds)
+    assert rwkv6_scan_backward_call.launches == before + 1
+    want = rwkv6_scan_backward_plain(*ops, dy, ds)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert _rel0(g, w) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", [0.1, 0.01])
+def test_wkv6_backward_kernel_at_low_decay(card, decay):
+    """Decays far below the model's clamp, where the kernel's dw divides
+    a cancelling difference by w: dr, dk, dv and du within 1e-4 of the
+    plain backward's max (which sums dw directly), dw within 4e-7 / w
+    (the order's emulation in test_torch_rwkv6.py: 1.5e-5 at w 0.01)."""
+    B, S, H = 1, 1000, 4
+    r, k, v, _, u = _wkv_inputs(card, B, S, H, 64, 11)
+    w = torch.full_like(r, decay)
+    dy, ds = _wkv_cotangents(card, B, S, H, 12, True)
+    got = rwkv6_scan_backward_call(r, k, v, w, u, dy, ds)
+    want = rwkv6_scan_backward_plain(r, k, v, w, u, dy, ds)
+    torch.cuda.synchronize()
+    for i, (g, x) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(g).all())
+        assert _rel0(g, x) <= (4e-7 / decay if i == 3 else 1e-4)
+
+
+@pytest.mark.cuda
+def test_wkv6_backward_kernel_reads_only_its_own_batch_row_and_head(card):
+    """NaN in batch row 1, in head 1 of batch row 0 and past the end of
+    every (B, S, H, hd) operand, S ragged against the stash interval:
+    heads 0 and 2 of batch row 0 come out finite and equal to a clean
+    run's, bit for bit (du sums over the batch and is not compared)."""
+    B, S, H = 2, WKV_BWD_CHUNK + 13, 3
+    clean = [*_wkv_inputs(card, B, S, H, 64, 7)]
+    dy, ds = _wkv_cotangents(card, B, S, H, 8, True)
+    want = rwkv6_scan_backward_call(*clean, dy, ds)
+    dirty = []
+    for x in (*clean[:4], dy):
+        x = x.clone()
+        x[1] = float("nan")
+        x[0, :, 1] = float("nan")
+        dirty.append(_nan_tailed(x))
+    u = clean[4].clone()
+    u[1] = float("nan")
+    ds_dirty = ds.clone()
+    ds_dirty[1] = float("nan")
+    ds_dirty[0, 1] = float("nan")
+    got = rwkv6_scan_backward_call(*dirty[:4], u, dirty[4], ds_dirty)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:4], want[:4]):
+        for h in (0, 2):
+            assert bool(torch.isfinite(g[0, :, h]).all())
+            assert torch.equal(g[0, :, h], w[0, :, h])
+
+
+@pytest.mark.cuda
+def test_wkv6_backward_kernel_is_deterministic(card):
+    """Two launches on the same inputs: bit-identical gradients (no
+    atomics; du summed over the batch in order)."""
+    ops = _wkv_inputs(card, 3, 300, 8, 64, 3)
+    dy, ds = _wkv_cotangents(card, 3, 300, 8, 4, True)
+    one = rwkv6_scan_backward_call(*ops, dy, ds)
+    two = rwkv6_scan_backward_call(*ops, dy, ds)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.cuda
+def test_wkv6_backward_kernel_refuses_what_it_does_not_take(card):
+    r, k, v, w, u = _wkv_inputs(card, 1, 16, 2, 32, 0)
+    before = rwkv6_scan_backward_call.launches
+    with pytest.raises(ValueError, match="head size"):
+        rwkv6_scan_backward_call(r, k, v, w, u, torch.zeros_like(r))
+    ops = _wkv_inputs(card, 1, 16, 2, 64, 0)
+    dy = torch.zeros_like(ops[0])
+    with pytest.raises(ValueError, match="float32"):
+        rwkv6_scan_backward_call(*ops, dy.bfloat16())
+    dy_t = torch.zeros((1, 2, 16, 64), device=card).transpose(1, 2)
+    assert not dy_t.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv6_scan_backward_call(*ops, dy_t)
+    shifted = torch.empty(dy.numel() + 1, device=card)[1:].view(dy.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        rwkv6_scan_backward_call(*ops, shifted)
+    assert rwkv6_scan_backward_call.launches == before
+
+
+def _scan_cotangents(card, B, S, di, seed, with_dh):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    dy = torch.randn((B, S, di), generator=gen, device=card)
+    dh = torch.randn((B, di, 16), generator=gen, device=card) if with_dh else None
+    return dy, dh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,S,di,h0,a",
+    [(2, 256, 512, False, "init"), (2, 77, 96, True, "init"),
+     # S at and around one stash interval, and past 2048
+     (1, 1, 96, True, "random"), (1, SCAN_BWD_CHUNK - 1, 96, True, "random"),
+     (1, SCAN_BWD_CHUNK, 96, True, "random"),
+     (1, SCAN_BWD_CHUNK + 1, 96, True, "random"), (1, 2049, 96, True, "random"),
+     # d_inner not a multiple of the block's channels
+     (3, 100, 8200, True, "random"), (3, 40, 100, True, "random"),
+     (2, 1000, 8192, False, "init"),  # the main path's width
+     (2, 300, 512, True, "underflow")],
+)
+def test_mamba_scan_backward_kernel_matches_plain(card, B, S, di, h0, a):
+    """Every gradient within 1e-4 of the max of the plain chunked
+    backward's (the forward's bound), from a normal h0 with a cotangent
+    on h_final or from zero without one, ragged S, d_inner not a
+    multiple of the block, decays that flush to 0; one launch count per
+    call."""
+    ops = _scan_inputs(card, B, S, di, 16, S + di + 1, h0, a)
+    dy, dh = _scan_cotangents(card, B, S, di, S + 2, h0)
+    before = mamba_scan_backward_call.launches
+    got = mamba_scan_backward_call(*ops, dy, dh, chunk=64)
+    assert mamba_scan_backward_call.launches == before + 1
+    want = mamba_scan_backward_plain(*ops, dy, dh, chunk=64)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert _rel0(g, w) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dirty", [0, 1])
+def test_mamba_scan_backward_kernel_reads_only_its_own_batch_row(card, dirty):
+    """NaN in every operand's batch row ``dirty`` and past the end of
+    dt, B, C, x and dy, S ragged against the stash interval: the other
+    row's ddt, dB, dC, dx and dh0 come out finite and equal to a clean
+    run's, bit for bit (dA sums over the batch and is not compared)."""
+    B, S, di = 2, SCAN_BWD_CHUNK + 13, 100
+    clean = _scan_inputs(card, B, S, di, 16, 7, True, "random")
+    dy, dh = _scan_cotangents(card, B, S, di, 8, True)
+    want = mamba_scan_backward_call(*clean, dy, dh, chunk=64)
+    dt, Bm, Cm, x, A, h0 = (t.clone() for t in clean)
+    dy, dh = dy.clone(), dh.clone()
+    for t in (dt, Bm, Cm, x, h0, dy, dh):
+        t[dirty] = float("nan")
+    dt, Bm, Cm, x, dy = (_nan_tailed(t) for t in (dt, Bm, Cm, x, dy))
+    got = mamba_scan_backward_call(dt, Bm, Cm, x, A, h0, dy, dh, chunk=64)
+    torch.cuda.synchronize()
+    keep = 1 - dirty
+    for i in (0, 1, 2, 3, 5):
+        assert bool(torch.isfinite(got[i][keep]).all())
+        assert torch.equal(got[i][keep], want[i][keep])
+
+
+@pytest.mark.cuda
+def test_mamba_scan_backward_kernel_is_deterministic(card):
+    """Two launches on the same inputs: bit-identical gradients (no
+    atomics; dB, dC over d_inner and dA over the batch in order)."""
+    ops = _scan_inputs(card, 3, 300, 8200, 16, 3, True, "random")
+    dy, dh = _scan_cotangents(card, 3, 300, 8200, 4, True)
+    one = mamba_scan_backward_call(*ops, dy, dh, chunk=64)
+    two = mamba_scan_backward_call(*ops, dy, dh, chunk=64)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.cuda
+def test_mamba_scan_backward_kernel_refuses_what_it_does_not_take(card):
+    ops = _scan_inputs(card, 1, 16, 64, 16, 0)
+    dy = torch.zeros_like(ops[3])
+    before = mamba_scan_backward_call.launches
+    with pytest.raises(ValueError, match="float32"):
+        mamba_scan_backward_call(*ops, dy.bfloat16(), chunk=8)
+    dy_t = torch.zeros((1, 64, 16), device=card).transpose(1, 2)
+    assert not dy_t.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_scan_backward_call(*ops, dy_t, chunk=8)
+    small = _scan_inputs(card, 1, 16, 64, 8, 0)
+    with pytest.raises(ValueError, match="d_state 16"):
+        mamba_scan_backward_call(*small, dy, chunk=8)
+    shifted = torch.empty(dy.numel() + 1, device=card)[1:].view(dy.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        mamba_scan_backward_call(*ops, shifted, chunk=8)
+    odd = _scan_inputs(card, 1, 16, 66, 16, 0)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        mamba_scan_backward_call(*odd, torch.zeros_like(odd[3]), chunk=8)
+    assert mamba_scan_backward_call.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,overrides,param_tol", [
+    ("rwkv6_7b", {"rwkv_head_size": 64}, 1e-4),
+    ("jamba_v0_1_52b", {"head_dim": 64, "mamba_d_state": 16}, 1e-3)])
+def test_smoke_recurrent_train_step_on_card_matches_cpu(card, name, overrides,
+                                                       param_tol):
+    """One AdamW step of smoke RWKV-6 and smoke Jamba in fp32, at the
+    kernels' head width 64 (and Jamba's d_state 16), on the card and on
+    the CPU from the same weights and batch: loss and grad norm within
+    1e-4, every parameter within ``param_tol`` (relative L2; Jamba's
+    16 layers take 1e-3, as tests/test_torch_train.py's Jamba steps),
+    through two forward launches per recurrent layer (one more under
+    remat) and one backward launch."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree import flatten, tree_map
+
+    cfg = dataclasses.replace(smoke_config(load_config(name)), **overrides)
+    plan = cfg.layer_plan()
+    n_rwkv = sum(m == "rwkv" for m, _ in plan)
+    n_mamba = sum(m == "mamba" for m, _ in plan)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 96), generator=gen),
+             "labels": torch.randint(0, cfg.vocab, (2, 96), generator=gen),
+             "mask": torch.ones((2, 96))}
+    step = make_train_step(cfg, AdamWConfig(lr_peak=1e-3, warmup_steps=1))
+    calls = (rwkv6_scan_call, rwkv6_scan_backward_call, mamba_scan_call,
+             mamba_scan_backward_call)
+    results = {}
+    for device in ("cpu", card):
+        p = tree_map(lambda t: t.to(device), params)
+        before = [c.launches for c in calls]
+        new, _, m = step(p, adamw_init(p), {k: v.to(device) for k, v in batch.items()})
+        if device == card:
+            torch.cuda.synchronize()
+            got = [c.launches - b for c, b in zip(calls, before)]
+            assert got == [2 * n_rwkv, n_rwkv, 2 * n_mamba, n_mamba]
+        results[str(device)] = (new, m)
+    (cpu_p, cpu_m), (card_p, card_m) = results["cpu"], results[str(card)]
+    for key in ("loss", "grad_norm"):
+        assert abs(card_m[key].item() - cpu_m[key].item()) <= 1e-4 * abs(cpu_m[key].item())
+    for a, b in zip(flatten(card_p)[0], flatten(cpu_p)[0]):
+        assert ((a.cpu() - b).norm() / b.norm()).item() <= param_tol

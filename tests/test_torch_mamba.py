@@ -14,6 +14,11 @@ Tolerances, with their reasons:
   multiply the same decays in another order; observed ~1e-7). The CUDA
   kernel's own order of summation is emulated here and held to the same
   bound, as the card holds the kernel to the plain version.
+- the gradient: the plain backward against torch autograd of the plain
+  scan and ``jax.vjp`` of the oracle at 1e-4 of the max (the same decays
+  multiplied in other orders); the backward kernels' fp32 order,
+  emulated here, against float64 autograd at the same bound, which the
+  card holds the kernels to against the plain version.
 - the mixer in float32: 1e-4 of the max (same arithmetic in another
   order), except the conv cache, which both sides round to bf16 from
   fp32 values ~1e-7 apart: a rounding can flip there, so it is held to
@@ -41,8 +46,19 @@ from repro.models import ssm as RS
 from repro_torch import convert
 from repro_torch.configs import load_config, smoke_config
 from repro_torch.kernels.mamba_scan import mamba_scan
-from repro_torch.kernels.mamba_scan.kernel import STAGE_STEPS, mamba_scan_call
-from repro_torch.kernels.mamba_scan.ref import chunk_size, mamba_scan_steps
+from repro_torch.kernels.mamba_scan.kernel import (
+    BWD_CHANNELS,
+    BWD_CHUNK,
+    STAGE_STEPS,
+    mamba_scan_backward_call,
+    mamba_scan_call,
+)
+from repro_torch.kernels.mamba_scan.ref import (
+    chunk_size,
+    mamba_scan_backward_plain,
+    mamba_scan_plain,
+    mamba_scan_steps,
+)
 from repro_torch.models import ssm as S
 
 torch.set_num_threads(1)
@@ -318,3 +334,197 @@ def test_mamba_init_and_cache_have_the_reference_layout():
     assert {k: (tuple(v.shape), str(v.dtype).replace("torch.", "")) for k, v in cache.items()} == {
         k: (tuple(v.shape), np.dtype(v.dtype).name) for k, v in ref.items()
     }
+
+
+# ---------------------------------------------------------------------------
+# the gradient
+# ---------------------------------------------------------------------------
+def _scan_cotangents(B, S_, di, ns, seed, with_dh):
+    rng = np.random.default_rng(seed)
+    dy = rng.standard_normal((B, S_, di)).astype(np.float32)
+    dh = rng.standard_normal((B, di, ns)).astype(np.float32) if with_dh else None
+    return dy, dh
+
+
+@pytest.mark.parametrize("S_,chunk,with_dh", [(32, 8, False), (48, 16, True),
+                                              (100, 64, True), (1, 8, True)])
+def test_plain_backward_matches_autograd_and_jax(S_, chunk, with_dh):
+    """The plain backward against torch autograd of the plain chunked
+    scan and against ``jax.vjp`` of the reference's associative-scan
+    oracle, from a normal h0, with and without a cotangent on h_final:
+    1e-4 of the max, the forward's tolerance (the same decays multiplied
+    in other orders)."""
+    arrs = _scan_inputs(2, S_, 12, 8, seed=S_ + chunk)
+    dy, dh = _scan_cotangents(2, S_, 12, 8, S_ + 1, with_dh)
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    y, h = mamba_scan_plain(*ts, chunk=chunk)
+    outs, cots = [y], [torch.from_numpy(dy)]
+    if with_dh:
+        outs.append(h)
+        cots.append(torch.from_numpy(dh))
+    want_torch = torch.autograd.grad(outs, ts, cots)
+    _, vjp = jax.vjp(mamba_scan_ref, *(jnp.asarray(a) for a in arrs))
+    want_jax = vjp((jnp.asarray(dy), jnp.asarray(
+        dh if with_dh else np.zeros_like(arrs[5]))))
+    got = mamba_scan_backward_plain(*(torch.from_numpy(a) for a in arrs),
+                                    torch.from_numpy(dy),
+                                    None if dh is None else torch.from_numpy(dh),
+                                    chunk=chunk)
+    for g, wt, wj in zip(got, want_torch, want_jax):
+        assert g.dtype == torch.float32 and g.shape == wt.shape
+        assert _rel(g, wj) <= TOL
+        assert _rel(g, wt) <= TOL
+
+
+def test_scan_is_differentiable_through_the_plain_versions():
+    """On CPU tensors the autograd function runs the plain forward and
+    `mamba_scan_backward_plain`; with grad off it is the forward alone."""
+    arrs = _scan_inputs(1, 40, 8, 4, seed=5)
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    dy, dh = (torch.from_numpy(a) for a in _scan_cotangents(1, 40, 8, 4, 6, True))
+    y, h = mamba_scan(*ts, chunk=8)
+    assert y.grad_fn is not None
+    grads = torch.autograd.grad((y, h), ts, (dy, dh))
+    want = mamba_scan_backward_plain(*(t.detach() for t in ts), dy, dh, chunk=8)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+    with torch.inference_mode():
+        assert mamba_scan(*ts, chunk=8)[0].grad_fn is None
+
+
+def test_cpu_backward_wrapper_counts_nothing_and_checks_inputs():
+    t = [torch.from_numpy(a) for a in _scan_inputs(1, 16, 8, 4, seed=1)]
+    dy = torch.zeros_like(t[3])
+    before = mamba_scan_backward_call.launches
+    mamba_scan_backward_call(*t, dy, chunk=8)
+    assert mamba_scan_backward_call.launches == before
+    with pytest.raises(ValueError, match="dy must be"):
+        mamba_scan_backward_call(*t, dy[:, :8], chunk=8)
+    with pytest.raises(ValueError, match="dh_final must be"):
+        mamba_scan_backward_call(*t, dy, t[5][:, :4], chunk=8)
+
+
+def _pairwise(x):
+    """Sum over the last axis pairwise in order, as an xor butterfly
+    leaves it in every lane: ((x0 + x1) + (x2 + x3)) + ..."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def _fma(a, b, c):
+    """fp32 fused multiply-add: the product and sum in float64, rounded
+    once to float32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _ex2_ftz(x):
+    """``__expf(x)``: 2^(x log2 e), the product rounded to fp32, results
+    below 2^-126 flushed to 0 (``ex2.approx.ftz``)."""
+    e = torch.exp2(x * torch.tensor(LOG2E, dtype=torch.float32))
+    return torch.where(e < 2.0**-126, torch.zeros_like(e), e)
+
+
+def _kernel_order_backward(dt, Bm, Cm, x, A, h0, dy, dh, chan=BWD_CHANNELS):
+    """The backward kernels' arithmetic, step by step in float32: h
+    recomputed as ``fma(dt x, B, p)`` with ``p = __expf(dt A) h``; per
+    thread the 4 states 4j..4j+3 in order, then the xor-1, 2 butterfly
+    over a channel's 4 threads (gB, the ddt sum); dB and dC over d as a
+    warp's 8 channels pairwise, then the block's 8 warps in order, then
+    the blocks in order; dA over the batch in order."""
+    Bb, S_, di = x.shape
+    ns = A.shape[1]
+    p_all, h = [], h0.clone()
+    for t in range(S_):
+        p = _ex2_ftz(dt[:, t, :, None] * A) * h
+        p_all.append(p)
+        h = _fma((dt[:, t] * x[:, t])[..., None], Bm[:, t, None, :], p)
+    q = dh.clone()
+    ddt, dx = torch.empty_like(dt), torch.empty_like(x)
+    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+    da = torch.zeros_like(h0)
+    n_blk = -(-di // chan)
+    pad = n_blk * chan - di
+
+    def over_d(e):  # (Bb, di, ns) -> (Bb, ns)
+        e = torch.nn.functional.pad(e, (0, 0, 0, pad))
+        e = e.reshape(Bb, n_blk, chan // 8, 8, ns)  # blocks, warps, channels
+        per_warp = _pairwise(e.transpose(-1, -2))  # (Bb, blocks, warps, ns)
+        out = per_warp[:, :, 0]
+        for w in range(1, per_warp.shape[2]):
+            out = out + per_warp[:, :, w]
+        tot = out[:, 0]
+        for b in range(1, n_blk):
+            tot = tot + out[:, b]
+        return tot
+
+    for t in range(S_ - 1, -1, -1):
+        dtv, xv, dyv = dt[:, t, :, None], x[:, t, :, None], dy[:, t, :, None]
+        dtx = dtv * xv
+        b_t, c_t, p = Bm[:, t, None, :], Cm[:, t, None, :], p_all[t]
+        g = _fma(dyv, c_t, q)
+        dc = _fma(dtx, b_t, p) * dyv
+        db = g * dtx
+        gb, gpa = g * b_t, (g * p) * A
+        gbs, gps = [gb[..., 0::4]], [gpa[..., 0::4]]
+        for j in range(1, 4):
+            gbs.append(_fma(g[..., j::4], b_t[..., j::4], gbs[-1]))
+            gps.append(_fma(g[..., j::4] * p[..., j::4], A[:, j::4], gps[-1]))
+        gb = _pairwise(gbs[-1])[..., None]
+        gpa = _pairwise(gps[-1])[..., None]
+        da = _fma(g * p, dtv, da)
+        q = _ex2_ftz(dtv * A) * g
+        ddt[:, t] = _fma(xv, gb, gpa)[..., 0]
+        dx[:, t] = (dtv * gb)[..., 0]
+        dB[:, t], dC[:, t] = over_d(db), over_d(dc)
+    dA = da[0]
+    for b in range(1, Bb):
+        dA = dA + da[b]
+    return ddt, dB, dC, dx, dA, q
+
+
+def _steps_backward64(dt, Bm, Cm, x, A, h0, dy, dh):
+    """float64 autograd of the step-by-step recurrence: the oracle."""
+    ts = [t.double().requires_grad_() for t in (dt, Bm, Cm, x, A, h0)]
+    dt_, B_, C_, x_, A_, h = ts
+    ys = []
+    for t in range(x.shape[1]):
+        h = torch.exp(dt_[:, t, :, None] * A_) * h + (
+            (dt_[:, t] * x_[:, t])[..., None] * B_[:, t, None, :])
+        ys.append(torch.einsum("bdn,bn->bd", h, C_[:, t]))
+    return torch.autograd.grad((torch.stack(ys, 1), h), ts, (dy.double(), dh.double()))
+
+
+@pytest.mark.parametrize("underflow", [False, True])
+def test_backward_kernel_summation_order_matches_float64(underflow):
+    """The backward kernels' order (`_kernel_order_backward`), emulated on
+    the CPU at S 2048 over two batch rows and two blocks of channels, A
+    drawn per element, h0 and the h_final cotangent normal, against
+    float64 autograd of the step-by-step recurrence: 1e-4 of the max, the
+    kernel's bound against the plain version on the card. dt is the
+    model's softplus(normal - 4.6); with ``underflow`` every 16th step
+    has dt 50 and the decays there flush to 0."""
+    rng = np.random.default_rng(19)
+    Bb, S_, di, ns = 2, 2048, 2 * BWD_CHANNELS, 16
+    dt = np.log1p(np.exp(rng.standard_normal((Bb, S_, di)) - 4.6)).astype(np.float32)
+    if underflow:
+        dt[:, ::16] = 50.0
+    Bm, Cm = (rng.standard_normal((Bb, S_, ns)).astype(np.float32) for _ in range(2))
+    x, dy = (rng.standard_normal((Bb, S_, di)).astype(np.float32) for _ in range(2))
+    A = -np.exp(0.5 + 1.5 * rng.standard_normal((di, ns))).astype(np.float32)
+    h0, dh = (rng.standard_normal((Bb, di, ns)).astype(np.float32) for _ in range(2))
+    ts = [torch.from_numpy(a) for a in (dt, Bm, Cm, x, A, h0, dy, dh)]
+    got = _kernel_order_backward(*ts)
+    want = _steps_backward64(*ts)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert _rel(g, w) <= TOL
+
+
+def test_backward_kernel_constants_are_the_sources():
+    """The stash interval and the block's channels the emulation above
+    follows are the ones compiled in."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+           / "mamba_scan_bwd.cu").read_text()
+    assert f"constexpr int kT = {BWD_CHUNK};" in src
+    assert f"constexpr int kChan = {BWD_CHANNELS};" in src

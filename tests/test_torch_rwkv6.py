@@ -12,9 +12,16 @@ tolerance between its chunked kernel and its stepwise oracle. The
 chunked forms rescale k by 1/prod(w) (here ``k / max(W, 1e-30)``, on the
 TPU ``k * exp(-cumw)``), which loses a few digits against the stepwise
 recurrence; they are not bit for bit.
+
+The gradient: the plain backward (a step-by-step recurrence) against
+torch autograd of the plain chunked forward and ``jax.vjp`` of the
+stepwise oracle at the same 1e-4 of the max, for the same reason; the
+backward kernels' fp32 order, emulated here, against float64 autograd
+at 1e-4 of the max, their bound against the plain version on the card.
 """
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,11 +32,17 @@ from repro.kernels.rwkv6_scan.ops import _shrink_to_divisor
 from repro.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.kernels.rwkv6_scan.kernel import (
+    BWD_CHUNK,
     MAX_CHUNK,
     STAGE_STEPS,
+    rwkv6_scan_backward_call,
     rwkv6_scan_call,
 )
-from repro_torch.kernels.rwkv6_scan.ref import chunk_size
+from repro_torch.kernels.rwkv6_scan.ref import (
+    chunk_size,
+    rwkv6_scan_backward_plain,
+    rwkv6_scan_plain,
+)
 
 torch.set_num_threads(1)
 
@@ -168,3 +181,236 @@ def test_stage_steps_is_the_kernels():
     src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
            / "rwkv6_scan.cu").read_text()
     assert f"constexpr int kT = {STAGE_STEPS};" in src
+
+
+# ---------------------------------------------------------------------------
+# the gradient
+# ---------------------------------------------------------------------------
+def _cotangents(B, S, H, hd, seed, with_ds):
+    rng = np.random.default_rng(seed)
+    dy = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    ds = (rng.standard_normal((B, H, hd, hd)).astype(np.float32) if with_ds
+          else None)
+    return dy, ds
+
+
+@pytest.mark.parametrize("S,with_ds", [(64, False), (37, True), (100, True),
+                                       (1, True)])
+def test_plain_backward_matches_autograd_and_jax(S, with_ds):
+    """The plain backward against torch autograd of the plain chunked
+    forward and against ``jax.vjp`` of the reference's stepwise oracle,
+    with and without a cotangent on S_final: 1e-4 of the max, the
+    forward's tolerance (the chunked form's ``k / prod(w)`` rescale loses
+    a few digits, and its gradient with it)."""
+    arrs = _inputs(2, S, 2, 16, seed=S)
+    dy, ds = _cotangents(2, S, 2, 16, S + 1, with_ds)
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    y, s_fin = rwkv6_scan_plain(*ts, chunk=chunk_size(MAX_CHUNK, S))
+    outs, cots = [y], [torch.from_numpy(dy)]
+    if with_ds:
+        outs.append(s_fin)
+        cots.append(torch.from_numpy(ds))
+    want_torch = torch.autograd.grad(outs, ts, cots)
+    _, vjp = jax.vjp(rwkv6_scan_ref, *(jnp.asarray(a) for a in arrs))
+    want_jax = vjp((jnp.asarray(dy), jnp.asarray(ds if with_ds else np.zeros(
+        (2, 2, 16, 16), np.float32))))
+    got = rwkv6_scan_backward_plain(*(torch.from_numpy(a) for a in arrs),
+                                    torch.from_numpy(dy),
+                                    None if ds is None else torch.from_numpy(ds))
+    for g, wt, wj in zip(got, want_torch, want_jax):
+        assert g.dtype == torch.float32 and g.shape == wt.shape
+        if not np.abs(np.asarray(wj)).max():  # dw at S 1: S_{-1} = 0
+            assert not g.abs().max() and not wt.abs().max()
+            continue
+        assert _rel(g.numpy(), wj) <= TOL
+        assert _rel(g.numpy(), wt.numpy()) <= TOL
+
+
+def test_scan_is_differentiable_through_the_plain_versions():
+    """On CPU tensors the autograd function runs the plain forward and
+    `rwkv6_scan_backward_plain`; with grad off it is the forward alone."""
+    arrs = _inputs(1, 40, 2, 16, seed=5)
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    dy, ds = _cotangents(1, 40, 2, 16, 6, True)
+    y, s_fin = rwkv6_scan(*ts)
+    assert y.grad_fn is not None
+    grads = torch.autograd.grad((y, s_fin), ts,
+                                (torch.from_numpy(dy), torch.from_numpy(ds)))
+    want = rwkv6_scan_backward_plain(*(t.detach() for t in ts),
+                                     torch.from_numpy(dy), torch.from_numpy(ds))
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+    # only y used: S_final's cotangent is taken as zero
+    (gr,) = torch.autograd.grad(rwkv6_scan(*ts)[0], ts[0], torch.from_numpy(dy))
+    assert torch.equal(gr, rwkv6_scan_backward_plain(
+        *(t.detach() for t in ts), torch.from_numpy(dy))[0])
+    with torch.inference_mode():
+        assert rwkv6_scan(*ts)[0].grad_fn is None
+
+
+def test_cpu_backward_wrapper_counts_nothing_and_checks_inputs():
+    t = [torch.from_numpy(a) for a in _inputs(1, 16, 2, 16, seed=1)]
+    dy = torch.zeros_like(t[0])
+    before = rwkv6_scan_backward_call.launches
+    rwkv6_scan_backward_call(*t, dy)
+    assert rwkv6_scan_backward_call.launches == before
+    with pytest.raises(ValueError, match="dy must be"):
+        rwkv6_scan_backward_call(*t, dy[:, :8])
+    with pytest.raises(ValueError, match="ds_final must be"):
+        rwkv6_scan_backward_call(*t, dy, torch.zeros((1, 2, 16, 8)))
+
+
+def _lane_cols(hd):
+    """The backward kernel's column slots: lane ci of a row's 8 lanes
+    holds columns 4ci..4ci+3 and hd/2+4ci..hd/2+4ci+3, in that order."""
+    half = hd // 2
+    return torch.tensor([[4 * c + q for q in range(4)]
+                         + [half + 4 * c + q for q in range(4)]
+                         for c in range(half // 4)])
+
+
+def _pairwise(x):
+    """Sum over the last axis pairwise in order, as an xor butterfly
+    leaves it in every lane: ((x0 + x1) + (x2 + x3)) + ..."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def _row_sum(m, vec, cols):
+    """``sum_j m[..., i, j] vec[..., j]`` in the kernel's order: an FMA
+    chain over each lane's 8 columns, then the xor-1, 2, 4 butterfly
+    over the row's 8 lanes."""
+    mm, vv = m[..., cols], vec[..., None, :][..., cols]  # (..., lanes, slots)
+    acc = mm[..., 0] * vv[..., 0]
+    for j in range(1, cols.shape[1]):
+        acc = _fma(mm[..., j], vv[..., j], acc)
+    return _pairwise(acc)
+
+
+def _kernel_order_backward(r, k, v, w, u, dy, ds_final, stash_every):
+    """The backward kernels' arithmetic on float32 (B·H, S, hd) tensors:
+    the forward sweep's S dy and update, the state stashed every
+    ``stash_every`` steps, the reverse sweep's G v, dv over each lane's 4
+    rows in order, the warp's 4 row groups pairwise and the 4 warps in
+    order, and dw from Q = rowsum(G * S) taken exactly at each stash and
+    walked down the chunk: ``w dw = Q - k (G v)``,
+    ``Q <- Q - k (G v) + r (S dy)``."""
+    Bh, S, hd = r.shape
+    cols = _lane_cols(hd)
+    ones = torch.ones(hd)
+    st = torch.zeros((Bh, hd, hd))
+    dr, a, stash = torch.empty_like(r), torch.empty_like(r), {}
+    for t in range(S):
+        vdy = _row_sum(v[:, t, None, :], dy[:, t], cols)
+        p = _row_sum(st, dy[:, t], cols)
+        dr[:, t] = _fma(u * k[:, t], vdy, p)
+        a[:, t] = r[:, t] * p
+        st = _fma(w[:, t, :, None], st, k[:, t, :, None] * v[:, t, None, :])
+        if t % stash_every == stash_every - 1 or t == S - 1:
+            stash[t] = st
+    G = ds_final.clone()
+    dk, dv, dw = (torch.empty_like(r) for _ in range(3))
+    du = torch.zeros((Bh, hd))
+    Q = None
+    for t in range(S - 1, -1, -1):
+        if t in stash:
+            Q = _row_sum(G * stash[t], ones, cols)
+        vdy = _row_sum(v[:, t, None, :], dy[:, t], cols)
+        gv = _row_sum(G, v[:, t], cols)
+        ck = k[:, t] * gv
+        dk[:, t] = _fma(u * r[:, t], vdy, gv)
+        qm = Q - ck
+        dw[:, t] = qm / w[:, t]
+        Q = qm + a[:, t]
+        du = _fma(r[:, t] * k[:, t], vdy, du)
+        ru, dd = r[:, t] * u, dy[:, t]
+        # (Bh, warps, groups, rows, hd): row 16 q + 4 g + j
+        gg = G.reshape(Bh, hd // 16, 4, 4, hd)
+        kk = k[:, t].reshape(Bh, hd // 16, 4, 4)[..., None]
+        rug = ru.reshape(Bh, hd // 16, 4, 4)[..., None]
+        ddv = dd[:, None, None, :]
+        acc = kk[..., 0, :] * _fma(rug[..., 0, :], ddv, gg[..., 0, :])
+        for j in range(1, 4):
+            acc = _fma(kk[..., j, :], _fma(rug[..., j, :], ddv, gg[..., j, :]), acc)
+        per_warp = _pairwise(acc.transpose(-1, -2))  # (Bh, warps, hd)
+        out = per_warp[:, 0]
+        for q in range(1, per_warp.shape[1]):
+            out = out + per_warp[:, q]
+        dv[:, t] = out
+        G = _fma(w[:, t, :, None], G, r[:, t, :, None] * dd[:, None, :])
+    return dr, dk, dv, dw, du
+
+
+def _steps_backward64(r, k, v, w, u, dy, ds):
+    """float64 autograd of the step-by-step recurrence: the oracle."""
+    ts = [t.double().requires_grad_() for t in (r, k, v, w, u)]
+    rr, kk, vv, ww, uu = ts
+    st = torch.zeros(r.shape[0], r.shape[-1], r.shape[-1], dtype=torch.float64)
+    ys = []
+    for t in range(r.shape[1]):
+        kv = kk[:, t, :, None] * vv[:, t, None, :]
+        ys.append(torch.einsum("bd,bde->be", rr[:, t], st + uu[None, :, None] * kv))
+        st = ww[:, t, :, None] * st + kv
+    return torch.autograd.grad((torch.stack(ys, 1), st), ts, (dy.double(), ds.double()))
+
+
+@pytest.mark.parametrize("logit", [-8.0, -1.0])
+def test_backward_kernel_summation_order_matches_float64(logit):
+    """The backward kernels' order (module `_kernel_order_backward`, the
+    decay's gradient walked from a state stashed every BWD_CHUNK steps),
+    emulated on the CPU at S 2048, hd 64, every decay at one clamp end,
+    with a cotangent on S_final, against float64 autograd of the
+    step-by-step recurrence: 1e-4 of the max, the kernel's bound against
+    the plain version on the card. The walk anchored at each stash is
+    held no worse on dw than the identity walked from the last step
+    alone, which subtracts sums over the whole sequence (the reason for
+    the anchors; observed 9.0e-7 / 3.7e-7 against 1.5e-6 / 1.8e-6)."""
+    arrs = _inputs(1, 2048, 1, 64, seed=3)
+    r, k, v = (torch.from_numpy(a[:, :, 0]) for a in arrs[:3])
+    u = torch.from_numpy(arrs[4][0])
+    w = torch.full_like(r, float(np.exp(-np.exp(logit))))
+    dy, ds = (torch.from_numpy(a) for a in _cotangents(1, 2048, 1, 64, 4, True))
+    dy, ds = dy[:, :, 0], ds[:, 0]
+    want = _steps_backward64(r, k, v, w, u, dy, ds)
+    got = _kernel_order_backward(r, k, v, w, u, dy, ds, BWD_CHUNK)
+    for g in got:
+        assert bool(torch.isfinite(g).all())
+    for g, x in zip(got[:4], want[:4]):
+        assert _rel(g.numpy(), x.numpy()) <= TOL
+    assert _rel(got[4][0].numpy(), want[4].numpy()) <= TOL
+    unanchored = _kernel_order_backward(r, k, v, w, u, dy, ds, 2 * r.shape[1])[3]
+    assert _rel(got[3].numpy(), want[3].numpy()) <= _rel(unanchored.numpy(),
+                                                         want[3].numpy())
+
+
+@pytest.mark.parametrize("decay", [0.1, 0.01])
+def test_backward_kernel_dw_rounding_grows_as_one_over_w(decay):
+    """Decays far below the model's clamp (w >= 0.69), where the kernel's
+    ``dw = (Q - k (G v)) / w`` cancels: its order emulated at S 512 with
+    a cotangent on S_final against float64 autograd. dr, dk, dv and du
+    keep 1e-4 of the max; dw's error, Q's rounding (a few fp32 ulp of
+    the state's scale) divided by w, stays within 4e-7 / w of its max
+    (observed 1.6e-6 at w 0.1 and 1.5e-5 at w 0.01), so the wrapper's
+    stated 1e-4 holds down to w 0.004."""
+    S = 512
+    arrs = _inputs(1, S, 1, 64, seed=3)
+    r, k, v = (torch.from_numpy(a[:, :, 0]) for a in arrs[:3])
+    u = torch.from_numpy(arrs[4][0])
+    w = torch.full_like(r, decay)
+    dy, ds = (torch.from_numpy(a) for a in _cotangents(1, S, 1, 64, 4, True))
+    dy, ds = dy[:, :, 0], ds[:, 0]
+    want = _steps_backward64(r, k, v, w, u, dy, ds)
+    got = _kernel_order_backward(r, k, v, w, u, dy, ds, BWD_CHUNK)
+    for i in (0, 1, 2):
+        assert _rel(got[i].numpy(), want[i].numpy()) <= TOL
+    assert _rel(got[4][0].numpy(), want[4].numpy()) <= TOL
+    assert _rel(got[3].numpy(), want[3].numpy()) <= 4e-7 / decay
+
+
+def test_backward_stash_interval_is_the_kernels():
+    """The stash interval the emulation above follows is the one compiled
+    in."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+           / "rwkv6_scan_bwd.cu").read_text()
+    assert f"constexpr int kT = {BWD_CHUNK};" in src
