@@ -2798,6 +2798,8 @@ PREVIOUS_MS = {
     "rwkv6_scan": (0.71597, "the step kernel before its TMA redesign"),
     "mamba_scan": (0.47799, "the one-channel-per-thread kernel before its redesign"),
     "flash_attention_backward": (22.83953, "the SIMT fp32-FMA kernel of PR 24"),
+    "rwkv6_scan_backward": (5.79748, "the first 4-warp sweep-and-reverse kernel"),
+    "mamba_scan_backward": (5.31701, "the first kernel: 16-step stash, p in shared memory"),
 }
 
 

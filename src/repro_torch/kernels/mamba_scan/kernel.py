@@ -29,7 +29,7 @@ D_STATE = 16
 STAGE_STEPS = 32
 #: steps between the states the backward kernels stash, and channels
 #: per block (``kT`` and ``kChan`` in ``mamba_scan_bwd.cu``)
-BWD_CHUNK, BWD_CHANNELS = 16, 64
+BWD_CHUNK, BWD_CHANNELS = 8, 128
 _GRID_Y_MAX = 65535
 
 

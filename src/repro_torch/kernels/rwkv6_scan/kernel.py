@@ -31,9 +31,10 @@ HEAD_DIM = 64
 MAX_CHUNK = 64
 #: time steps the CUDA kernel stages per TMA box (``kT`` in the source)
 STAGE_STEPS = 32
-#: steps between the states the backward kernel stashes (``kT`` in
+#: steps between the states the backward kernels stash, and the column
+#: groups their state is split into (``kStash`` and ``kGroups`` in
 #: ``rwkv6_scan_bwd.cu``)
-BWD_CHUNK = 32
+BWD_CHUNK, BWD_GROUPS = 32, 4
 _INT32_MAX = 2**31 - 1
 
 
@@ -145,10 +146,12 @@ def rwkv6_scan_backward_call(r, k, v, w, u, dy, ds_final=None):
 
     On CUDA every operand must be float32, contiguous, 16-byte aligned
     (cp.async), and hd 64. The call runs three kernels on the current
-    stream (a forward sweep, a reverse sweep, du's sum over the batch),
-    with no atomics, so two calls give the same bits; each call adds one
-    to ``rwkv6_scan_backward_call.launches``. Its scratch is the state
-    every BWD_CHUNK steps, (B, H, ceil(S / BWD_CHUNK), hd, hd) fp32. The
+    stream (a forward sweep, a reverse sweep over BWD_GROUPS column
+    groups of the state, du's sum over the batch), with no atomics, so
+    two calls give the same bits; each call adds one to
+    ``rwkv6_scan_backward_call.launches``. Its scratch is the state
+    after every BWD_CHUNK steps and after the last,
+    (B, H, ceil(S / BWD_CHUNK), hd, hd) fp32. The
     decays must lie in (0, 1): the kernel takes dw as a difference of
     row sums divided by w, so dw's rounding grows as 1/w (about 2e-7 / w
     of its max; w 0.01 is within 1e-4), and w = 0 divides by zero. The

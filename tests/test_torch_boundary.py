@@ -203,7 +203,8 @@ def test_chip_smoke_recurrent_backward_bounds():
     bytes take less; dw's walk is O(hd) a step and adds none); the scan backward's at Jamba's is its 5 (B, S, di)
     tensors' bytes (one exponential per state element and step on the
     SFUs, and its flops, take less). Every entry of the ``kernels`` line
-    without an earlier time says so on the text line."""
+    without an earlier time says so on the text line; the two backwards,
+    redesigned, carry their first versions' times there."""
     smoke = _load_smoke()
     bound, by = smoke.wkv_bwd_bound(8, 2048, 64, 64)
     flops = 12.0 * 8 * 2048 * 64 * 64 * 64
@@ -215,6 +216,11 @@ def test_chip_smoke_recurrent_backward_bounds():
            "bound_by": "operations", "library_ms": None}
     entry = smoke.kernel_entry("rwkv6_scan_backward", "src/x.cu", "rwkv.py:109",
                                "fma", 8, row)
-    assert "rwkv6_scan_backward" not in smoke.PREVIOUS_MS
-    assert "rwkv6_scan_backward 5.00000 ms now, no earlier time" in (
+    assert smoke.PREVIOUS_MS["rwkv6_scan_backward"][0] == 5.79748
+    assert smoke.PREVIOUS_MS["mamba_scan_backward"][0] == 5.31701
+    assert "rwkv6_scan_backward 5.00000 ms now, 5.79748 ms before" in (
         smoke.previous_line([entry]))
+    first = smoke.kernel_entry("a_first_version", "src/x.cu", "x.py:1", "fma", 8, row)
+    assert "a_first_version" not in smoke.PREVIOUS_MS
+    assert "a_first_version 5.00000 ms now, no earlier time" in (
+        smoke.previous_line([first]))

@@ -66,6 +66,7 @@ from repro_torch.kernels.flash_attention.ref import (
     attention_plain,
     tol_ratio,
 )
+from repro_torch.kernels.mamba_scan.kernel import BWD_CHANNELS as SCAN_BWD_CHANNELS
 from repro_torch.kernels.mamba_scan.kernel import BWD_CHUNK as SCAN_BWD_CHUNK
 from repro_torch.kernels.mamba_scan.kernel import STAGE_STEPS as SCAN_STAGE_STEPS
 from repro_torch.kernels.mamba_scan.kernel import (
@@ -897,12 +898,37 @@ def test_wkv6_backward_kernel_matches_plain(card, B, S, H, with_ds):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,S,H,with_ds",
+    [(1, 3 * WKV_BWD_CHUNK + 7, 5, True),  # ragged last chunk, odd H
+     (1, 2 * WKV_BWD_CHUNK + 1, 3, False),  # a last chunk of one step
+     (3, WKV_BWD_CHUNK + 5, 1, True), (1, 4 * WKV_BWD_CHUNK, 7, True)],
+)
+def test_wkv6_backward_kernel_column_groups_at_ragged_edges(card, B, S, H, with_ds):
+    """The kernel's column groups and once-a-chunk sums where the chunks
+    and the grid are ragged: S not a multiple of the stash interval (the
+    reverse starts on the short chunk), B 1 and odd H, with and without a
+    cotangent on S_final. Every gradient within 1e-4 of the max of the
+    plain backward's, and two launches bit-identical."""
+    ops = _wkv_inputs(card, B, S, H, 64, 3 * S + H)
+    dy, ds = _wkv_cotangents(card, B, S, H, 3 * S + H + 1, with_ds)
+    got = rwkv6_scan_backward_call(*ops, dy, ds)
+    again = rwkv6_scan_backward_call(*ops, dy, ds)
+    want = rwkv6_scan_backward_plain(*ops, dy, ds)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert _rel0(g, w) <= 1e-4
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("decay", [0.1, 0.01])
 def test_wkv6_backward_kernel_at_low_decay(card, decay):
     """Decays far below the model's clamp, where the kernel's dw divides
     a cancelling difference by w: dr, dk, dv and du within 1e-4 of the
     plain backward's max (which sums dw directly), dw within 4e-7 / w
-    (the order's emulation in test_torch_rwkv6.py: 1.5e-5 at w 0.01)."""
+    (the order's emulation in test_torch_rwkv6.py: 1.6e-5 at w 0.01)."""
     B, S, H = 1, 1000, 4
     r, k, v, _, u = _wkv_inputs(card, B, S, H, 64, 11)
     w = torch.full_like(r, decay)
@@ -1013,6 +1039,31 @@ def test_mamba_scan_backward_kernel_matches_plain(card, B, S, di, h0, a):
     for g, w in zip(got, want):
         assert g.shape == w.shape and bool(torch.isfinite(g).all())
         assert _rel0(g, w) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,S,di,h0,a",
+    [(1, 2 * SCAN_BWD_CHUNK + 3, 3 * SCAN_BWD_CHANNELS + 4, True, "random"),
+     (2, 5 * SCAN_BWD_CHUNK + 1, SCAN_BWD_CHANNELS + 4, False, "init"),
+     (1, 7, 2 * SCAN_BWD_CHANNELS + 36, True, "underflow")],
+)
+def test_mamba_scan_backward_kernel_block_edges(card, B, S, di, h0, a):
+    """d_inner not a multiple of the block's channels (the last block
+    part empty), S ragged against the stash interval (the reverse's short
+    chunk runs all its steps on zeros past S), decays that flush to 0:
+    every gradient within 1e-4 of the max of the plain backward's, and
+    two launches bit-identical."""
+    ops = _scan_inputs(card, B, S, di, 16, 5 * S + di, h0, a)
+    dy, dh = _scan_cotangents(card, B, S, di, 5 * S + di + 1, h0)
+    got = mamba_scan_backward_call(*ops, dy, dh, chunk=64)
+    again = mamba_scan_backward_call(*ops, dy, dh, chunk=64)
+    want = mamba_scan_backward_plain(*ops, dy, dh, chunk=64)
+    torch.cuda.synchronize()
+    for g, x, w in zip(got, again, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert _rel0(g, w) <= 1e-4
+        assert torch.equal(g, x)
 
 
 @pytest.mark.cuda

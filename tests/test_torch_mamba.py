@@ -418,26 +418,42 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def _ex2_ftz(x):
-    """``__expf(x)``: 2^(x log2 e), the product rounded to fp32, results
-    below 2^-126 flushed to 0 (``ex2.approx.ftz``)."""
-    e = torch.exp2(x * torch.tensor(LOG2E, dtype=torch.float32))
+def _decay(dt, A):
+    """a_t as the backward kernels take it, as the forward kernel does:
+    2^(dt (A log2 e)), A pre-scaled in fp32, results below 2^-126
+    flushed to 0 (one ``ex2.approx.ftz``)."""
+    e = torch.exp2(dt * (A * torch.tensor(LOG2E, dtype=torch.float32)))
     return torch.where(e < 2.0**-126, torch.zeros_like(e), e)
 
 
-def _kernel_order_backward(dt, Bm, Cm, x, A, h0, dy, dh, chan=BWD_CHANNELS):
-    """The backward kernels' arithmetic, step by step in float32: h
-    recomputed as ``fma(dt x, B, p)`` with ``p = __expf(dt A) h``; per
-    thread the 4 states 4j..4j+3 in order, then the xor-1, 2 butterfly
-    over a channel's 4 threads (gB, the ddt sum); dB and dC over d as a
-    warp's 8 channels pairwise, then the block's 8 warps in order, then
-    the blocks in order; dA over the batch in order."""
+def _halving(x):
+    """Sum over the last axis as a reduce-scatter leaves it, halving the
+    payload at each level: x[:n/2] + x[n/2:], then again."""
+    while x.shape[-1] > 1:
+        n = x.shape[-1] // 2
+        x = x[..., :n] + x[..., n:]
+    return x[..., 0]
+
+
+def _kernel_order_backward(dt, Bm, Cm, x, A, h0, dy, dh, chan=BWD_CHANNELS,
+                           over_warp=_halving):
+    """The backward kernels' arithmetic, step by step in float32: a_t =
+    `_decay` once per step and state, p = a_t h, h recomputed as
+    ``fma(dt x, B, p)``, and the adjoint carried back with the same a_t;
+    per thread the 4 states 4j..4j+3 in order, then the xor-1, 2
+    butterfly over a channel's 4 threads (gB, the ddt sum); dB and dC
+    over d as a thread's 2 channels in order, then the warp's 8 channel
+    pairs by the reduce-scatter (``over_warp``: pairs c and c + 4, then
+    + 2, then + 1), then the block's warps in order, then the blocks in
+    order; dA over the batch in order."""
     Bb, S_, di = x.shape
     ns = A.shape[1]
-    p_all, h = [], h0.clone()
+    p_all, a_all, h = [], [], h0.clone()
     for t in range(S_):
-        p = _ex2_ftz(dt[:, t, :, None] * A) * h
+        a_t = _decay(dt[:, t, :, None], A)
+        p = a_t * h
         p_all.append(p)
+        a_all.append(a_t)
         h = _fma((dt[:, t] * x[:, t])[..., None], Bm[:, t, None, :], p)
     q = dh.clone()
     ddt, dx = torch.empty_like(dt), torch.empty_like(x)
@@ -448,8 +464,9 @@ def _kernel_order_backward(dt, Bm, Cm, x, A, h0, dy, dh, chan=BWD_CHANNELS):
 
     def over_d(e):  # (Bb, di, ns) -> (Bb, ns)
         e = torch.nn.functional.pad(e, (0, 0, 0, pad))
-        e = e.reshape(Bb, n_blk, chan // 8, 8, ns)  # blocks, warps, channels
-        per_warp = _pairwise(e.transpose(-1, -2))  # (Bb, blocks, warps, ns)
+        e = e.reshape(Bb, n_blk, chan // 16, 8, 2, ns)  # blocks, warps, pairs
+        e = e[..., 0, :] + e[..., 1, :]
+        per_warp = over_warp(e.transpose(-1, -2))  # (Bb, blocks, warps, ns)
         out = per_warp[:, :, 0]
         for w in range(1, per_warp.shape[2]):
             out = out + per_warp[:, :, w]
@@ -473,7 +490,7 @@ def _kernel_order_backward(dt, Bm, Cm, x, A, h0, dy, dh, chan=BWD_CHANNELS):
         gb = _pairwise(gbs[-1])[..., None]
         gpa = _pairwise(gps[-1])[..., None]
         da = _fma(g * p, dtv, da)
-        q = _ex2_ftz(dtv * A) * g
+        q = a_all[t] * g
         ddt[:, t] = _fma(xv, gb, gpa)[..., 0]
         dx[:, t] = (dtv * gb)[..., 0]
         dB[:, t], dC[:, t] = over_d(db), over_d(dc)
@@ -521,10 +538,54 @@ def test_backward_kernel_summation_order_matches_float64(underflow):
         assert _rel(g, w) <= TOL
 
 
+def _bwd_source():
+    return (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+            / "mamba_scan_bwd.cu").read_text()
+
+
 def test_backward_kernel_constants_are_the_sources():
     """The stash interval and the block's channels the emulation above
-    follows are the ones compiled in."""
-    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
-           / "mamba_scan_bwd.cu").read_text()
+    follows are the ones compiled in, and the reverse takes one
+    exponential per state element and step, kept for the adjoint."""
+    src = _bwd_source()
     assert f"constexpr int kT = {BWD_CHUNK};" in src
     assert f"constexpr int kChan = {BWD_CHANNELS};" in src
+    reverse = src[src.index("scan_bwd_reverse_kernel("):src.index("scan_bwd_dbc_kernel(")]
+    assert reverse.count("ex2(") == 1
+    assert "e[t][k][j] = ex2(dtv[k] * a2[k][j]);" in reverse
+    assert "q[k][j] = e[t][k][j] * g[j];" in reverse
+    assert "constexpr int kCPL = 2;" in src
+
+
+def test_backward_reduce_scatter_order_is_the_sources():
+    """dB and dC over a thread's 2 channels, then the warp's 8 channel
+    pairs, run as the emulation's reduce-scatter (xor 16 with 4 values,
+    xor 8 with 2, xor 4 with 1, each lane keeping one half), then the
+    block's warps in order. The butterfly it replaced (xor 4, 8, 16 on
+    every value) sums the same channels in another order and gives
+    other bits."""
+    src = _bwd_source()
+    for snippet in (
+        "k4[j] = (hi ? dc[j] : db[j]) + __shfl_xor_sync(kFull, hi ? db[j] : dc[j], 16);",
+        "k2[j] = (mid ? k4[j + 2] : k4[j]) + __shfl_xor_sync(kFull, mid ? k4[j] : k4[j + 2], 8);",
+        "return (lo ? k2[1] : k2[0]) + __shfl_xor_sync(kFull, lo ? k2[0] : k2[1], 4);",
+        "= chan_sum(db, dc, lane);",
+        "db[j] = k ? db[j] + bj : bj;  // the thread's two channels in order",
+        "dc[j] = k ? dc[j] + cj : cj;",
+        "for (int w = 1; w < kWarps; ++w) {",
+    ):
+        assert snippet in src
+    rng = np.random.default_rng(23)
+    Bb, S_, di, ns = 1, 64, BWD_CHANNELS, 16
+    dt = np.log1p(np.exp(rng.standard_normal((Bb, S_, di)) - 4.6)).astype(np.float32)
+    Bm, Cm = (rng.standard_normal((Bb, S_, ns)).astype(np.float32) for _ in range(2))
+    x, dy = (rng.standard_normal((Bb, S_, di)).astype(np.float32) for _ in range(2))
+    A = -np.exp(0.5 + 1.5 * rng.standard_normal((di, ns))).astype(np.float32)
+    h0, dh = (rng.standard_normal((Bb, di, ns)).astype(np.float32) for _ in range(2))
+    ts = [torch.from_numpy(a) for a in (dt, Bm, Cm, x, A, h0, dy, dh)]
+    kernel = _kernel_order_backward(*ts)
+    butterfly = _kernel_order_backward(*ts, over_warp=_pairwise)
+    for i in (1, 2):  # dB, dC
+        assert not torch.equal(kernel[i], butterfly[i])
+    for i in (0, 3, 4, 5):
+        assert torch.equal(kernel[i], butterfly[i])

@@ -33,6 +33,7 @@ from repro.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.kernels.rwkv6_scan.kernel import (
     BWD_CHUNK,
+    BWD_GROUPS,
     MAX_CHUNK,
     STAGE_STEPS,
     rwkv6_scan_backward_call,
@@ -260,15 +261,6 @@ def test_cpu_backward_wrapper_counts_nothing_and_checks_inputs():
         rwkv6_scan_backward_call(*t, dy, torch.zeros((1, 2, 16, 8)))
 
 
-def _lane_cols(hd):
-    """The backward kernel's column slots: lane ci of a row's 8 lanes
-    holds columns 4ci..4ci+3 and hd/2+4ci..hd/2+4ci+3, in that order."""
-    half = hd // 2
-    return torch.tensor([[4 * c + q for q in range(4)]
-                         + [half + 4 * c + q for q in range(4)]
-                         for c in range(half // 4)])
-
-
 def _pairwise(x):
     """Sum over the last axis pairwise in order, as an xor butterfly
     leaves it in every lane: ((x0 + x1) + (x2 + x3)) + ..."""
@@ -277,68 +269,98 @@ def _pairwise(x):
     return x[..., 0]
 
 
-def _row_sum(m, vec, cols):
-    """``sum_j m[..., i, j] vec[..., j]`` in the kernel's order: an FMA
-    chain over each lane's 8 columns, then the xor-1, 2, 4 butterfly
-    over the row's 8 lanes."""
-    mm, vv = m[..., cols], vec[..., None, :][..., cols]  # (..., lanes, slots)
+def _halving(x):
+    """Sum over the last axis as a reduce-scatter leaves it, halving the
+    payload at each level: x[:n/2] + x[n/2:], then again."""
+    while x.shape[-1] > 1:
+        n = x.shape[-1] // 2
+        x = x[..., :n] + x[..., n:]
+    return x[..., 0]
+
+
+def _in_order(x, order):
+    """Sum over the last axis one term at a time, in ``order``."""
+    out = x[..., order[0]]
+    for g in order[1:]:
+        out = out + x[..., g]
+    return out
+
+
+def _group_row_sums(m, x, groups):
+    """``sum_j m[..., i, j] x[..., i, j]`` over each column group, in the
+    kernel's order: the group's 16 columns as 2 lanes of 8, an FMA chain
+    over a lane's 8 columns, then the row's 2 lanes added. ``x``
+    broadcasts against ``m`` (a row vector for S dy and G v, the state
+    for rowsum(G * S)). Returns (..., rows, groups)."""
+    *lead, rows, hd = m.shape
+    mm = m.reshape(*lead, rows, groups, 2, hd // groups // 2)
+    vv = x.expand_as(m).reshape(*lead, rows, groups, 2, hd // groups // 2)
     acc = mm[..., 0] * vv[..., 0]
-    for j in range(1, cols.shape[1]):
-        acc = _fma(mm[..., j], vv[..., j], acc)
+    for c in range(1, mm.shape[-1]):
+        acc = _fma(mm[..., c], vv[..., c], acc)
     return _pairwise(acc)
 
 
-def _kernel_order_backward(r, k, v, w, u, dy, ds_final, stash_every):
-    """The backward kernels' arithmetic on float32 (B·H, S, hd) tensors:
-    the forward sweep's S dy and update, the state stashed every
-    ``stash_every`` steps, the reverse sweep's G v, dv over each lane's 4
-    rows in order, the warp's 4 row groups pairwise and the 4 warps in
-    order, and dw from Q = rowsum(G * S) taken exactly at each stash and
-    walked down the chunk: ``w dw = Q - k (G v)``,
-    ``Q <- Q - k (G v) + r (S dy)``."""
+def _dot_by_parts(a, b, parts):
+    """``sum_j a_j b_j`` over hd: an FMA chain over each of ``parts``
+    runs of hd / parts, then the parts pairwise (the kernel's v . dy and
+    sum_i r u k, 16 threads of 4)."""
+    aa = a.reshape(*a.shape[:-1], parts, -1)
+    bb = b.reshape(*b.shape[:-1], parts, -1)
+    acc = aa[..., 0] * bb[..., 0]
+    for c in range(1, aa.shape[-1]):
+        acc = _fma(aa[..., c], bb[..., c], acc)
+    return _pairwise(acc)
+
+
+def _kernel_order_backward(r, k, v, w, u, dy, ds_final, stash_every,
+                           groups=BWD_GROUPS, group_order=None):
+    """The backward kernels' arithmetic on float32 (B·H, S, hd) tensors.
+    The sweep: the state step by step, S_{t-1} dy_t per column group J
+    (`_group_row_sums`) and the groups summed in ``group_order`` (default
+    the kernel's, 0, 1, ...), the state kept after every ``stash_every``
+    steps and after the last. The reverse: G carried back, (G v)^J per
+    group and summed in the same order, rowsum(G * S) taken exactly at
+    each kept state (per group, then summed) and walked down to the next
+    (``w dw = Q - k (G v)``, ``Q <- Q - k (G v) + r (S dy)``), dv's
+    columns over the group's 64 rows (a lane's 4 rows in order, then the
+    warp's 16 row quads halving), v . dy and sum_i r u k over 16 parts of
+    4 pairwise, du over the steps in reverse order."""
     Bh, S, hd = r.shape
-    cols = _lane_cols(hd)
-    ones = torch.ones(hd)
+    order = list(range(groups)) if group_order is None else list(group_order)
     st = torch.zeros((Bh, hd, hd))
-    dr, a, stash = torch.empty_like(r), torch.empty_like(r), {}
+    P = torch.empty((Bh, S, hd))
+    ends = {}
     for t in range(S):
-        vdy = _row_sum(v[:, t, None, :], dy[:, t], cols)
-        p = _row_sum(st, dy[:, t], cols)
-        dr[:, t] = _fma(u * k[:, t], vdy, p)
-        a[:, t] = r[:, t] * p
+        P[:, t] = _in_order(_group_row_sums(st, dy[:, t, None, :], groups), order)
         st = _fma(w[:, t, :, None], st, k[:, t, :, None] * v[:, t, None, :])
         if t % stash_every == stash_every - 1 or t == S - 1:
-            stash[t] = st
+            ends[t] = st
+    vdy = _dot_by_parts(v, dy, hd // 4)
+    ruk = _dot_by_parts(r * u, k, hd // 4)
     G = ds_final.clone()
-    dk, dv, dw = (torch.empty_like(r) for _ in range(3))
-    du = torch.zeros((Bh, hd))
+    GV, DV, dw = (torch.empty((Bh, S, hd)) for _ in range(3))
     Q = None
     for t in range(S - 1, -1, -1):
-        if t in stash:
-            Q = _row_sum(G * stash[t], ones, cols)
-        vdy = _row_sum(v[:, t, None, :], dy[:, t], cols)
-        gv = _row_sum(G, v[:, t], cols)
-        ck = k[:, t] * gv
-        dk[:, t] = _fma(u * r[:, t], vdy, gv)
-        qm = Q - ck
+        if t in ends:
+            Q = _in_order(_group_row_sums(G, ends[t], groups), order)
+        GV[:, t] = _in_order(_group_row_sums(G, v[:, t, None, :], groups), order)
+        qm = _fma(-k[:, t], GV[:, t], Q)
         dw[:, t] = qm / w[:, t]
-        Q = qm + a[:, t]
-        du = _fma(r[:, t] * k[:, t], vdy, du)
-        ru, dd = r[:, t] * u, dy[:, t]
-        # (Bh, warps, groups, rows, hd): row 16 q + 4 g + j
-        gg = G.reshape(Bh, hd // 16, 4, 4, hd)
-        kk = k[:, t].reshape(Bh, hd // 16, 4, 4)[..., None]
-        rug = ru.reshape(Bh, hd // 16, 4, 4)[..., None]
-        ddv = dd[:, None, None, :]
-        acc = kk[..., 0, :] * _fma(rug[..., 0, :], ddv, gg[..., 0, :])
+        Q = _fma(r[:, t], P[:, t], qm)
+        kk = k[:, t].reshape(Bh, hd // 4, 4)[..., None]  # (row quad, row)
+        gg = G.reshape(Bh, hd // 4, 4, hd)
+        pv = kk[:, :, 0] * gg[:, :, 0]
         for j in range(1, 4):
-            acc = _fma(kk[..., j, :], _fma(rug[..., j, :], ddv, gg[..., j, :]), acc)
-        per_warp = _pairwise(acc.transpose(-1, -2))  # (Bh, warps, hd)
-        out = per_warp[:, 0]
-        for q in range(1, per_warp.shape[1]):
-            out = out + per_warp[:, q]
-        dv[:, t] = out
-        G = _fma(w[:, t, :, None], G, r[:, t, :, None] * dd[:, None, :])
+            pv = _fma(kk[:, :, j], gg[:, :, j], pv)
+        DV[:, t] = _halving(pv.transpose(-1, -2))
+        G = _fma(w[:, t, :, None], G, r[:, t, :, None] * dy[:, t, None, :])
+    dr = _fma(u * k, vdy[..., None], P)
+    dk = _fma(u * r, vdy[..., None], GV)
+    dv = _fma(ruk[..., None], dy, DV)
+    du = torch.zeros((Bh, hd))
+    for t in range(S - 1, -1, -1):
+        du = _fma(r[:, t] * k[:, t], vdy[:, t, None], du)
     return dr, dk, dv, dw, du
 
 
@@ -357,15 +379,17 @@ def _steps_backward64(r, k, v, w, u, dy, ds):
 
 @pytest.mark.parametrize("logit", [-8.0, -1.0])
 def test_backward_kernel_summation_order_matches_float64(logit):
-    """The backward kernels' order (module `_kernel_order_backward`, the
-    decay's gradient walked from a state stashed every BWD_CHUNK steps),
-    emulated on the CPU at S 2048, hd 64, every decay at one clamp end,
-    with a cotangent on S_final, against float64 autograd of the
-    step-by-step recurrence: 1e-4 of the max, the kernel's bound against
-    the plain version on the card. The walk anchored at each stash is
-    held no worse on dw than the identity walked from the last step
-    alone, which subtracts sums over the whole sequence (the reason for
-    the anchors; observed 9.0e-7 / 3.7e-7 against 1.5e-6 / 1.8e-6)."""
+    """The backward kernels' order (module `_kernel_order_backward`: the
+    state split into BWD_GROUPS column groups, the groups' partial rows
+    summed in group order, the decay's gradient walked from the state
+    stashed every BWD_CHUNK steps), emulated on the CPU at S 2048, hd
+    64, every decay at one clamp end, with a cotangent on S_final,
+    against float64 autograd of the step-by-step recurrence: 1e-4 of the
+    max, the kernel's bound against the plain version on the card. The
+    walk anchored at each stash is held no worse on dw than the identity
+    walked from the last step alone, which subtracts sums over the whole
+    sequence (the reason for the anchors; observed 9.9e-7 / 3.3e-7
+    against 1.8e-6 / 1.5e-6)."""
     arrs = _inputs(1, 2048, 1, 64, seed=3)
     r, k, v = (torch.from_numpy(a[:, :, 0]) for a in arrs[:3])
     u = torch.from_numpy(arrs[4][0])
@@ -391,7 +415,7 @@ def test_backward_kernel_dw_rounding_grows_as_one_over_w(decay):
     a cotangent on S_final against float64 autograd. dr, dk, dv and du
     keep 1e-4 of the max; dw's error, Q's rounding (a few fp32 ulp of
     the state's scale) divided by w, stays within 4e-7 / w of its max
-    (observed 1.6e-6 at w 0.1 and 1.5e-5 at w 0.01), so the wrapper's
+    (observed 1.8e-6 at w 0.1 and 1.6e-5 at w 0.01), so the wrapper's
     stated 1e-4 holds down to w 0.004."""
     S = 512
     arrs = _inputs(1, S, 1, 64, seed=3)
@@ -408,9 +432,48 @@ def test_backward_kernel_dw_rounding_grows_as_one_over_w(decay):
     assert _rel(got[3].numpy(), want[3].numpy()) <= 4e-7 / decay
 
 
+def _bwd_source():
+    return (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+            / "rwkv6_scan_bwd.cu").read_text()
+
+
 def test_backward_stash_interval_is_the_kernels():
-    """The stash interval the emulation above follows is the one compiled
-    in."""
-    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
-           / "rwkv6_scan_bwd.cu").read_text()
-    assert f"constexpr int kT = {BWD_CHUNK};" in src
+    """The stash interval, the column groups and the lane layout the
+    emulation above follows are the ones compiled in."""
+    src = _bwd_source()
+    assert f"constexpr int kStash = {BWD_CHUNK};" in src
+    assert f"constexpr int kGroups = {BWD_GROUPS};" in src
+    assert "constexpr int kGCols = kHD / kGroups;" in src
+    assert "p.row0 = 4 * (lane / 2);" in src
+    assert "p.col0 = kGCols * p.grp + 8 * p.ch;" in src
+
+
+def test_backward_group_order_is_the_sources():
+    """The once-a-tile sums run in the order the emulation takes: the
+    groups' partial rows of S dy (the sweep), of G v and of rowsum(G * S)
+    (the reverse) in group order, and the walk on their sums. An
+    emulation that sums the groups in another order gives other bits (so
+    the order it follows is one that matters)."""
+    src = _bwd_source()
+    for snippet in (
+        "for (int g = 1; g < kGroups; ++g) add4(p, ld4(Pt + g * kTile + o));",
+        "for (int g = 1; g < kGroups; ++g) add4(gv, ld4(GVt + g * kTile + o));",
+        "const float gv = ((GVt[o] + GVt[kTile + o]) + GVt[2 * kTile + o]) + GVt[3 * kTile + o];",
+        "if (anchor) Q = ((QJ[i] + QJ[kHD + i]) + QJ[2 * kHD + i]) + QJ[3 * kHD + i];",
+        "const float qm = fmaf(-ks[o], gv, Q);",
+        "Q = fmaf(rs[o], ps[o], qm);",
+    ):
+        assert snippet in src
+    S = 96
+    arrs = _inputs(1, S, 1, 64, seed=9)
+    r, k, v, w = (torch.from_numpy(a[:, :, 0]) for a in arrs[:4])
+    u = torch.from_numpy(arrs[4][0])
+    dy, ds = (torch.from_numpy(a) for a in _cotangents(1, S, 1, 64, 10, True))
+    dy, ds = dy[:, :, 0], ds[:, 0]
+    kernel = _kernel_order_backward(r, k, v, w, u, dy, ds, BWD_CHUNK)
+    other = _kernel_order_backward(r, k, v, w, u, dy, ds, BWD_CHUNK,
+                                   group_order=range(BWD_GROUPS - 1, -1, -1))
+    for i in (0, 1, 3):  # dr, dk, dw sum the groups' partials
+        assert not torch.equal(kernel[i], other[i])
+    for i in (2, 4):  # dv and du do not
+        assert torch.equal(kernel[i], other[i])
