@@ -152,9 +152,23 @@ Phases, each printing what it finds; any failure exits non-zero:
              (``RECURRENT_TRAIN`` says why those depths), with the same
              readings and two forward and one backward launch of WKV-6 or
              the scan per recurrent layer per step.
-11. report — a ``conformance`` and a ``kernels`` JSON line (seven
-             hand-written kernels), the card's name and power limit, and
-             the result line.
+11. pipeline — the pipeline executor (GPipe, one stage per rank over
+             ``torch.distributed``): StableLM-1.6B at full width and
+             depth on 4 spawned stage ranks of 6 layers, all on this
+             card, talking over gloo (NCCL takes one card per rank), each
+             hop staged through pinned host memory; every rank builds
+             the model from the seed and keeps its layers, rank 0 injects
+             8 microbatches of 2 x 2048 bf16 embeddings drawn from the
+             seed. The output must equal rank 0's sequential
+             ``reference_backbone`` bit for bit, and each rank must launch
+             the flash kernel once per microbatch per attention layer it
+             holds (48 each, 192 in all, the sequential run's count).
+             Prints each rank's milliseconds, peak memory, launches,
+             hops and bytes per hop, and the sequential run's time.
+12. report — a ``conformance`` and a ``kernels`` JSON line (seven
+             hand-written kernels; flash attention's launches are the
+             LM phase's Mistral-NeMo run and the pipeline's), the card's
+             name and power limit, and the result line.
 
 Exits with code 2 and prints no result when no CUDA card is visible.
 """
@@ -253,6 +267,7 @@ from repro_torch.models.module import param_bytes, param_count  # noqa: E402
 from repro_torch.obs import EVENT_KINDS, MetricsRegistry, TraceRecorder, trace_diff  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.pipeline import PharosServer, design_to_segments  # noqa: E402
+from repro_torch.pipeline.executor import BackboneCase, backbone_job, launch  # noqa: E402
 from repro_torch.pipeline.serve import window_plan  # noqa: E402
 from repro_torch.traffic import (  # noqa: E402
     CRITICALITY_HI,
@@ -2781,6 +2796,87 @@ def phase_train() -> tuple[dict, dict]:
                          wkv_bwd_row=wkv_row, scan_bwd_row=scan_row)
 
 
+# ---------------------------------------------------------------------------
+# the pipeline executor: GPipe over torch.distributed, one stage per rank
+# ---------------------------------------------------------------------------
+#: StableLM-1.6B at full width and depth, 4 stages of 6 layers, every
+#: rank a process on the one card
+PIPELINE_MODEL, PIPELINE_STAGES, PIPELINE_MICRO, PIPELINE_SEED = "stablelm_1_6b", 4, 8, 7
+#: NCCL takes one card per rank (it refuses two ranks on one card), so
+#: the ranks sharing this card talk over gloo, each hop staged through
+#: pinned host memory
+PIPELINE_BACKEND = "gloo"
+PIPELINE_TIMEOUT = 300.0
+
+
+def phase_pipeline() -> dict:
+    """`repro_torch.pipeline.executor` on the card: 4 spawned ranks, each
+    building StableLM-1.6B from the seed and keeping its 6 layers; rank 0
+    injects 8 microbatches of 2 x 2048 bf16 embeddings drawn from the
+    seed. The pipelined output must equal rank 0's sequential
+    `reference_backbone` bit for bit (the JAX package's test holds its
+    executor to ``err == 0.0``), and each rank's measured pass must launch
+    the flash kernel once per microbatch per attention layer it holds.
+    Returns the phase's numbers and its flash launches."""
+    t0 = time.perf_counter()
+    cfg = load_config(PIPELINE_MODEL)
+    case = BackboneCase(cfg, torch.bfloat16, PIPELINE_MICRO, LM_BATCH, LM_PROMPT,
+                        PIPELINE_SEED)
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks' four contexts and models need the room
+    print(f"[pipeline] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}; "
+          f"{PIPELINE_STAGES} stage ranks of {cfg.n_layers // PIPELINE_STAGES} layers, "
+          f"all on cuda:0 (this process holds {torch.cuda.memory_allocated() / 1e9:.3f} "
+          f"GB allocated, {torch.cuda.memory_reserved() / 1e9:.3f} GB reserved); "
+          f"{PIPELINE_MICRO} microbatches of {LM_BATCH} x {LM_PROMPT} bf16")
+    _build.build()  # built in phase 1: the ranks only load the libraries
+    reset_counts()
+    ranks = [r[0] for r in launch(backbone_job, PIPELINE_STAGES,
+                                  backend=PIPELINE_BACKEND, device="cuda",
+                                  timeout=PIPELINE_TIMEOUT, args=([case],))]
+    check(not any(counts().values()), "the parent launched no kernel")
+    out, ref = ranks[-1]["out"], ranks[0]["ref"]
+    check(tuple(out.shape) == (PIPELINE_MICRO, LM_BATCH, LM_PROMPT, cfg.d_model)
+          and out.dtype == torch.bfloat16, f"pipelined output shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out.float()).all()), "pipelined output finite")
+    same = torch.equal(out, ref)
+    diff = (out.float() - ref.float()).abs().max().item()
+    print(f"[pipeline] pipelined output vs reference_backbone: "
+          f"{'bit-identical' if same else 'DIFFERENT'} (max abs diff {diff:.3g})")
+    check(same, "pipelined output bit-identical to reference_backbone")
+    per = cfg.n_layers // PIPELINE_STAGES
+    plan = cfg.layer_plan()
+    for r in ranks:
+        attn = sum(m == "attn" for m, _ in plan[r["stage"] * per:(r["stage"] + 1) * per])
+        check(r["backend"] == PIPELINE_BACKEND, f"rank {r['stage']} backend {r['backend']}")
+        check(r["flash_launches"] == PIPELINE_MICRO * attn,
+              f"rank {r['stage']}: {r['flash_launches']} flash launches, want "
+              f"{PIPELINE_MICRO * attn}")
+    launches = sum(r["flash_launches"] for r in ranks)
+    n_attn = sum(m == "attn" for m, _ in plan)
+    check(ranks[0]["ref_flash_launches"] == launches == PIPELINE_MICRO * n_attn,
+          f"sequential run launched {ranks[0]['ref_flash_launches']}, pipeline {launches}")
+    card = card_line()
+    for r in ranks:
+        print(f"[pipeline] rank {r['stage']}: layers {r['stage'] * per}-"
+              f"{(r['stage'] + 1) * per - 1}, {r['ms']:.3f} ms (host clock from the "
+              f"barrier to its last output), peak {r['peak_bytes'] / 1e9:.3f} GB "
+              f"allocated, {r['flash_launches']} flash launches, {r['hops']} hops "
+              f"sent of {r['hop_bytes']} bytes over {r['backend']}")
+    pipe_ms = max(r["ms"] for r in ranks)
+    print(f"[pipeline] pipelined {pipe_ms:.3f} ms (the slowest rank), sequential "
+          f"reference_backbone {ranks[0]['ref_ms']:.3f} ms on rank 0 alone, "
+          f"{ranks[0]['ref_flash_launches']} flash launches; four ranks share one "
+          f"card, so no speedup is expected; {card}")
+    print(f"[pipeline] phase: {time.perf_counter() - t0:.3f} s")
+    return {"launches": launches, "pipelined_ms": pipe_ms,
+            "sequential_ms": ranks[0]["ref_ms"],
+            "ranks": [{k: r[k] for k in ("stage", "ms", "peak_bytes", "flash_launches",
+                                          "hops", "hop_bytes", "backend")}
+                      for r in ranks]}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2844,6 +2940,7 @@ def main() -> int:
     lm_runs = {name: phase_lm(name, seed=100 + i, n_layers=n, kv_quant=q)
                for i, (name, n, q) in enumerate(LM_MODELS)}
     bwd_row, train = phase_train()
+    pipeline = phase_pipeline()
     pmm = kernel_entry(
         "preemptible_matmul_window", "src/repro_torch/csrc/preemptible_matmul.cu",
         "src/repro/kernels/preemptible_matmul/kernel.py:36", "mma.sync",
@@ -2859,9 +2956,13 @@ def main() -> int:
     flash = kernel_entry(
         "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:32", "wgmma",
-        lm_runs["mistral_nemo_12b"]["launches"]["flash_attention"], flash_row,
+        lm_runs["mistral_nemo_12b"]["launches"]["flash_attention"]
+        + pipeline["launches"], flash_row,
     )
-    flash.update(split_floor_ms=flash_row["split_floor_ms"],
+    flash.update(launches_by_path={
+                     "lm": lm_runs["mistral_nemo_12b"]["launches"]["flash_attention"],
+                     "pipeline": pipeline["launches"]},
+                 split_floor_ms=flash_row["split_floor_ms"],
                  shape={k: flash_row[k] for k in ("B", "S", "H", "Hkv", "hd", "dtype")})
     wkv = kernel_entry(
         "rwkv6_scan", "src/repro_torch/csrc/rwkv6_scan.cu",

@@ -4,15 +4,18 @@ counterparts of ``repro.launch.steps.make_train_step``,
 
 PyTorch runs eagerly, so a step is a plain closure over the config. The
 serve step takes the JAX package's int8 KV cache variant (``kv_quant``).
-The train step takes its ``remat`` and ``micro_batches``; its sharding
-arguments (``policy``, ``grad_shardings``) and the micro-batch and
-activation planners do nothing on one card and come with distribution.
+The train step takes its ``remat`` and ``micro_batches``, which
+`auto_micro_batches` plans for a production mesh; its sharding
+arguments (``policy``, ``grad_shardings``) and the activation planner
+do nothing on one card and come with distribution.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import axis_sizes, batch_axes
+from repro_torch.launch.shapes import ShapeCase
 from repro_torch.models import lm
 from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.tree import flatten, tree_map, unflatten
@@ -74,6 +77,44 @@ def make_train_step(
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step
+
+
+#: target upper bound on the dominant per-device live activation set
+_STASH_BUDGET_BYTES = (1 << 30) * 3 // 4
+
+
+def auto_micro_batches(cfg: ArchConfig, case: ShapeCase, mesh) -> int:
+    """Smallest power-of-two divisor of the per-device batch keeping the
+    dominant live buffers under budget on ``mesh`` (a device mesh with
+    the production axes). Model (all scale ~1/u):
+
+    - per-repeat carry stash the backward keeps:
+      ``n_layers x B_loc x S/model x d x 2B``;
+    - MoE combine output (fp32, full-S per data shard):
+      ``T_loc x d x 4B``;
+    - MoE dispatch (G, E, C, d) bf16, /model when expert-parallel.
+    """
+    sizes = axis_sizes(mesh)
+    n_data = 1
+    for a in batch_axes(mesh):
+        n_data *= sizes[a]
+    model = sizes.get("model", 1)
+    b_loc = max(1, case.global_batch // n_data)
+    s_loc = max(1, case.seq_len // model)
+    live = cfg.n_layers * b_loc * s_loc * cfg.d_model * 2
+    if cfg.n_experts:
+        t_loc = b_loc * case.seq_len
+        live += t_loc * cfg.d_model * 4  # fp32 combine
+        disp = t_loc * cfg.top_k * cfg.capacity_factor * cfg.d_model * 2
+        if cfg.n_experts % model == 0:
+            disp /= model  # expert-parallel dispatch is model-sharded
+        live += disp
+    micro = 1
+    while micro < b_loc and live / micro > _STASH_BUDGET_BYTES:
+        micro *= 2
+    while b_loc % micro:
+        micro //= 2
+    return max(1, micro)
 
 
 def make_prefill_step(cfg: ArchConfig, cache_len: int):

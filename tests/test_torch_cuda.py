@@ -45,7 +45,10 @@ launch per window, every completed job's chained output within
 ``CHAIN_REL_TOL`` of float64. The conformance harness on the card: the
 calibration (host clock through the sync) covers each window's card
 time, a `run_case` equals the CPU run's, and the wall-clock case at the
-reference's own test settings comes back clean.
+reference's own test settings comes back clean. The pipeline executor:
+two stage ranks sharing the card over gloo give `reference_backbone`'s
+output bit for bit (the same kernels at the same shapes in each
+process), with one flash launch per microbatch per layer.
 """
 import dataclasses
 import importlib.util
@@ -1171,3 +1174,78 @@ def test_smoke_recurrent_train_step_on_card_matches_cpu(card, name, overrides,
         assert abs(card_m[key].item() - cpu_m[key].item()) <= 1e-4 * abs(cpu_m[key].item())
     for a, b in zip(flatten(card_p)[0], flatten(cpu_p)[0]):
         assert ((a.cpu() - b).norm() / b.norm()).item() <= param_tol
+
+
+@pytest.mark.cuda
+def test_pipeline_executor_on_card_equals_reference_backbone(card):
+    """The pipeline executor with 2 stage ranks sharing cuda:0 over gloo
+    (each hop staged through pinned host memory), a 4-layer model at
+    width 256 and the kernels' head width 64, bf16 and fp32: the
+    pipelined output equals rank 0's sequential `reference_backbone` and
+    this process's, bit for bit, and each rank launches the flash kernel
+    once per microbatch per layer it holds."""
+    from repro_torch import _build
+    from repro_torch.configs import ArchConfig
+    from repro_torch.models import lm
+    from repro_torch.pipeline.executor import (
+        BackboneCase,
+        backbone_job,
+        launch,
+        reference_backbone,
+    )
+
+    cfg = ArchConfig(name="t64", family="dense", n_layers=4, d_model=256, n_heads=4,
+                     n_kv_heads=2, head_dim=64, d_ff=512, vocab=128)
+    cases = [BackboneCase(cfg, dtype, 4, 2, 128, 3)
+             for dtype in (torch.bfloat16, torch.float32)]
+    _build.build(["flash_attention"])  # the ranks only load it
+    ranks = launch(backbone_job, 2, backend="gloo", device="cuda", timeout=300.0,
+                   args=(cases,))
+    for i, case in enumerate(cases):
+        first, last = ranks[0][i], ranks[1][i]
+        params = lm.init_params(torch.Generator(device=card).manual_seed(case.seed),
+                                cfg, case.dtype, device=card)
+        want = reference_backbone(cfg, params, case.micro(card)).cpu()
+        assert torch.equal(last["out"], first["ref"])
+        assert torch.equal(last["out"], want)
+        assert [r[i]["flash_launches"] for r in ranks] == [case.n_micro * 2] * 2
+        assert first["ref_flash_launches"] == case.n_micro * cfg.n_layers
+        assert first["backend"] == "gloo" and first["hops"] == case.n_micro
+        assert first["peak_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_pipeline_executor_over_nccl_with_a_card_per_stage(card):
+    """The executor's NCCL hops (card tensors sent as they are), one card
+    per stage rank: 4 stages where 4 cards are visible, else 2; skips on
+    one card. The pipelined output equals rank 0's `reference_backbone`
+    and this process's on the first card, bit for bit (every card the
+    same model)."""
+    from repro_torch import _build
+    from repro_torch.configs import ArchConfig
+    from repro_torch.models import lm
+    from repro_torch.pipeline.executor import (
+        BackboneCase,
+        backbone_job,
+        launch,
+        reference_backbone,
+    )
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("nccl needs a card per stage rank: 2 or more cards")
+    stages = 4 if n_cards >= 4 else 2
+    cfg = ArchConfig(name="t64", family="dense", n_layers=4, d_model=256, n_heads=4,
+                     n_kv_heads=2, head_dim=64, d_ff=512, vocab=128)
+    case = BackboneCase(cfg, torch.bfloat16, 4, 2, 128, 3)
+    _build.build(["flash_attention"])
+    ranks = [r[0] for r in launch(backbone_job, stages, backend="nccl",
+                                  device="cuda", timeout=300.0, args=([case],))]
+    params = lm.init_params(torch.Generator(device=card).manual_seed(case.seed), cfg,
+                            case.dtype, device=card)
+    want = reference_backbone(cfg, params, case.micro(card)).cpu()
+    assert torch.equal(ranks[-1]["out"], ranks[0]["ref"])
+    assert torch.equal(ranks[-1]["out"], want)
+    per = cfg.n_layers // stages
+    assert [r["flash_launches"] for r in ranks] == [case.n_micro * per] * stages
+    assert all(r["backend"] == "nccl" for r in ranks)
