@@ -165,10 +165,31 @@ Phases, each printing what it finds; any failure exits non-zero:
              holds (48 each, 192 in all, the sequential run's count).
              Prints each rank's milliseconds, peak memory, launches,
              hops and bytes per hop, and the sequential run's time.
-12. report — a ``conformance`` and a ``kernels`` JSON line (seven
+12. spmd   — the SPMD policy. The dry run (``repro_torch.launch.dryrun``,
+             in a subprocess: torch's fake process group of 256 ranks)
+             traces StableLM-1.6B x train_4k and Granite-MoE-3B x
+             prefill_32k on the 16x16 mesh, printing each record:
+             per-device GB, FLOPs, collective bytes by kind, the roofline
+             terms at the H100's peaks and the dominant one. Then
+             Granite-MoE-3B (32 layers, 40 experts in 48 banks, top 8)
+             through ``launch.steps.lowerable`` on a 1 x 1 mesh (a one-
+             rank nccl group), its parameters distributed at the
+             reference's shardings: at capacity factor E / top_k the
+             last-token logits of a B 2 x 2048 prefill must match the
+             NO_POLICY (dropless) prefill within CARD_CPU_REL_L2; at its
+             own factor, one warm-up and three timed prefills (ms, one
+             flash launch per layer, no MoE host read, the share of
+             (token, expert) slots dropped). Then the train step at 8
+             layers, B 8 x 2048: the first step's loss at E / top_k
+             against the NO_POLICY step within SPMD_LOSS_RTOL, then a
+             warm-up and four timed steps (ms, tokens/s, peak memory,
+             flash launches, the model FLOP rate from
+             ``roofline.analytic_cost`` and its share of 989 TFLOP/s).
+13. report — a ``conformance`` and a ``kernels`` JSON line (seven
              hand-written kernels; flash attention's launches are the
-             LM phase's Mistral-NeMo run and the pipeline's), the card's
-             name and power limit, and the result line.
+             LM phase's Mistral-NeMo run, the pipeline's and the spmd
+             phase's), the card's name and power limit, and the result
+             line.
 
 Exits with code 2 and prints no result when no CUDA card is visible.
 """
@@ -192,6 +213,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
@@ -214,6 +236,8 @@ from repro_torch.conformance import (  # noqa: E402
 from repro_torch.core.dse import DSEConfig, explore, provision  # noqa: E402
 from repro_torch.core.perfmodel.hardware import paper_platform  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    attention_backward_flops,
+    attention_flops,
     flash_attention_backward_call,
     flash_attention_call,
 )
@@ -224,9 +248,12 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_plain,
     tol_ratio,
 )
+from repro_torch.kernels.mamba_scan.kernel import BWD_FLOPS as SCAN_BWD_FLOPS  # noqa: E402
 from repro_torch.kernels.mamba_scan.kernel import (  # noqa: E402
     mamba_scan_backward_call,
     mamba_scan_call,
+    scan_backward_flops,
+    scan_flops,
 )
 from repro_torch.kernels.mamba_scan.ref import (  # noqa: E402
     mamba_scan_backward_plain,
@@ -246,19 +273,30 @@ from repro_torch.kernels.preemptible_matmul.ref import (  # noqa: E402
     matmul_ref,
     matmul_window_plain,
 )
+from repro_torch.kernels.rwkv6_scan.kernel import BWD_FLOPS as WKV_BWD_FLOPS  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.kernel import (  # noqa: E402
     rwkv6_scan_backward_call,
     rwkv6_scan_call,
+    wkv_backward_flops,
+    wkv_flops,
 )
 from repro_torch.kernels.rwkv6_scan.ref import (  # noqa: E402
     rwkv6_scan_backward_plain,
     rwkv6_scan_plain,
 )
 from repro_torch.data import DataConfig, SyntheticTokenDataset  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.launch.dryrun import summary as dryrun_summary  # noqa: E402
+from repro_torch.launch.mesh import make_dev_mesh  # noqa: E402
+from repro_torch.launch.shapes import ShapeCase  # noqa: E402
+from repro_torch.launch.sharding import distribute_tree  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
+    auto_micro_batches,
+    lowerable,
     make_prefill_step,
     make_serve_step,
+    make_train_step,
     value_and_grad,
 )
 from repro_torch.models import layers as L  # noqa: E402
@@ -287,7 +325,7 @@ from repro_torch.traffic import (  # noqa: E402
 )
 from repro_torch.traffic.clock import VirtualClock, WallClock  # noqa: E402
 from repro_torch.traffic.shedding import get_policy  # noqa: E402
-from repro_torch.tree import flatten_with_paths  # noqa: E402
+from repro_torch.tree import flatten_with_paths, tree_map  # noqa: E402
 
 BLOCK = (128, 128, 128)
 WINDOW_TILES = 4  # PharosServer's default, the "pallas" geometry's request
@@ -303,9 +341,11 @@ STEADY_CITY_REFERENCE_DESIGN = (
     0.9205637872700669,
 )
 
-#: published H100 SXM peaks (NVIDIA data sheet, dense), at 700 W
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+#: published H100 SXM peaks (NVIDIA data sheet, dense), at 700 W: the
+#: roofline's, so that one set of peaks serves the bounds and the dry run
+PEAK_BYTES_S = roofline.HBM_BW
+PEAK_FLOPS = {torch.float32: roofline.PEAK_FLOPS_F32,
+              torch.bfloat16: roofline.PEAK_FLOPS}
 #: the TF32 tensor-core peak: the window kernel's fp32 path runs three
 #: TF32 products per fp32 one (3xTF32) there
 PEAK_TF32_FLOPS = 495e12
@@ -1702,7 +1742,7 @@ def flash_bound(B, S, H, Hkv, hd, es, products=1.0):
     ``products`` = FLASH_SPLIT_PRODUCTS it is the bf16 kernel's own floor
     (P V twice, for P_hi and P_lo), not the function's bound."""
     nbytes = 2 * B * S * (H + Hkv) * hd * es
-    flops = products * 4.0 * hd * B * H * S * (S + 1) / 2
+    flops = products * attention_flops(B, S, H, hd)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1721,7 +1761,7 @@ def wkv_bound(B, S, H, hd):
     flops per state element and r^T S is 2; the bonus r^T diag(u) k v^T
     is (sum_i r_i u_i k_i) v, 3 flops per row to reduce and 2 per column
     to add."""
-    flops = float(B * S * H) * (5 * hd * hd + 5 * hd)
+    flops = wkv_flops(B, S, H, hd)
     t_bytes = wkv_bytes(B, S, H, hd) / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1750,7 +1790,7 @@ def scan_bound(B, S, di, ns):
     elems = float(B * S * di * ns)
     t_bytes = scan_bytes(B, S, di, ns) / PEAK_BYTES_S * 1e3
     t_exp = elems / (SFU_PER_CLOCK_SM * N_SMS * SM_CLOCK_HZ) * 1e3
-    t_fma = 6 * elems / PEAK_FLOPS[torch.float32] * 1e3
+    t_fma = scan_flops(B, S, di, ns) / PEAK_FLOPS[torch.float32] * 1e3
     t_ops = max(t_exp, t_fma)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -2267,7 +2307,7 @@ def bwd_bound(B, S, H, Hkv, hd, es, products=5):
     key <= query) pair at the bf16 tensor-core peak: five (s, dP, dV, dQ,
     dK) for the bound, `BWD_SPLIT_PRODUCTS` for the split floor."""
     nbytes = 4 * B * S * (H + Hkv) * hd * es
-    flops = products * 2.0 * hd * B * H * S * (S + 1) / 2
+    flops = products / 5 * attention_backward_flops(B, S, H, hd)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -2356,16 +2396,6 @@ SCAN_BWD_PLAIN_CHUNK = 64
 #: Jamba layer pair would hold ~82 GB (layer 1 is MoE, ~2.8 B parameters
 #: alone), so Jamba trains its first layer (mamba mixer, dense SwiGLU)
 RECURRENT_TRAIN = (("rwkv6_7b", 8), ("jamba_v0_1_52b", 1))
-#: fp32 FMA-class operations the WKV-6 backward needs per state element
-#: and step: the states again (w S + k v: 3), S dy (2), G's update (3),
-#: G v (2), Gᵀ k (2); dw comes from a walk of O(hd) a step (w dw =
-#: rowsum(G S) - k (G v), one exact rowsum a stash) and the bonus term
-#: (Σ r u k) dy is O(hd) a step, so neither counts here
-WKV_BWD_FLOPS = 12
-#: per state element and step of the scan backward: the states again
-#: (dt A, a h + (dt x) B: 4), the adjoint (q + dy C, a g: 3), g B, g h a
-#: A, g h a dt, g dt x, h dy (10)
-SCAN_BWD_FLOPS = 17
 
 
 def wkv_bwd_bound(B, S, H, hd):
@@ -2374,7 +2404,7 @@ def wkv_bwd_bound(B, S, H, hd):
     memory bandwidth, against WKV_BWD_FLOPS per state element and step
     at the fp32 FMA peak."""
     nbytes = 4 * (9 * B * S * H * hd + 2 * H * hd)
-    flops = float(WKV_BWD_FLOPS) * B * S * H * hd * hd
+    flops = wkv_backward_flops(B, S, H, hd)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -2391,7 +2421,7 @@ def scan_bwd_bound(B, S, di, ns):
     nbytes = 4 * (5 * B * S * di + 4 * B * S * ns + 2 * di * ns + 2 * B * di * ns)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_exp = elems / (SFU_PER_CLOCK_SM * N_SMS * SM_CLOCK_HZ) * 1e3
-    t_fma = SCAN_BWD_FLOPS * elems / PEAK_FLOPS[torch.float32] * 1e3
+    t_fma = scan_backward_flops(B, S, di, ns) / PEAK_FLOPS[torch.float32] * 1e3
     t_ops = max(t_exp, t_fma)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -2672,6 +2702,14 @@ def train_main_path(cfg, label="main path") -> dict:
           f"{(marks[0] - t0) * 1e3:.3f} ms; steps 1-{TRAIN_STEPS - 2} {ms_step:.3f} ms "
           f"per step (each {[round(x * 1e3, 3) for x in step_s]}), {tokens_s:.1f} "
           f"tokens/s; card peak memory {peak_gb:.3f} GB")
+    model_flops = roofline.analytic_cost(
+        cfg, ShapeCase("train", TRAIN_SEQ, TRAIN_BATCH, "train")).model_flops
+    rate = model_flops / (ms_step / 1e3)
+    print(f"[train] {cfg.name}: model FLOP rate {rate / 1e12:.3f} TFLOP/s "
+          f"({model_flops:.4e} model flops a step: roofline.analytic_cost's 6 N D, "
+          f"N the config's {cfg.param_counts()['active'] / 1e9:.3f} B active "
+          f"parameters), {rate / roofline.PEAK_FLOPS * 100:.2f}% of "
+          f"{roofline.PEAK_FLOPS / 1e12:g} TFLOP/s; {card_line()}")
     print(f"[train] {cfg.name}: host: {tracked} objects tracked by the garbage "
           f"collector before the path, one full collection of them {full_gc_ms:.3f} "
           f"ms, then frozen; {len(pauses)} collections in the path "
@@ -2700,7 +2738,8 @@ def train_main_path(cfg, label="main path") -> dict:
               + f"; together {sum(t for t, _ in passes.values()) / 1e3:.3f} ms")
     return {"launches": launched, "launches_per_step": per_step, "losses": losses,
             "grad_norms": gnorms, "ms_per_step": ms_step, "tokens_per_s": tokens_s,
-            "peak_gb": peak_gb, "busy_share": busy, "backward_ms": backward}
+            "peak_gb": peak_gb, "busy_share": busy, "backward_ms": backward,
+            "model_flop_rate": rate}
 
 
 def train_resume() -> dict:
@@ -2877,6 +2916,269 @@ def phase_pipeline() -> dict:
                       for r in ranks]}
 
 
+# ---------------------------------------------------------------------------
+# the SPMD policy: the dry run, and Granite-MoE-3B through `lowerable`
+# ---------------------------------------------------------------------------
+#: the dry run's cells, each on the 16x16 production mesh of torch's fake
+#: process group: a train step and an MoE prefill
+SPMD_DRYRUN_CELLS = (("stablelm_1_6b", "train_4k"),
+                     ("granite_moe_3b_a800m", "prefill_32k"))
+SPMD_DRYRUN_TIMEOUT = 240.0
+#: Granite-MoE-3B: 32 layers, d 1536, 24/8 heads, 40 experts padded to 48,
+#: top 8; prefill at full depth, training at 8 layers (its 32 with fp32
+#: AdamW moments and B 8 x 2048 activations would not leave room for the
+#: NO_POLICY step held beside it)
+SPMD_MODEL, SPMD_TRAIN_LAYERS, SPMD_SEED = "granite_moe_3b_a800m", 8, 11
+SPMD_PREFILLS, SPMD_STEPS = 3, 4
+#: the first step's loss against the NO_POLICY (dropless) step on the same
+#: parameters and batch, capacity factor E / top_k (nothing drops): bf16
+#: activations through other product groupings (an expert's C rows at
+#: once vs its own rows), a mean over 16384 tokens; the loss is a mean,
+#: so tighter than the logits' CARD_CPU_REL_L2
+SPMD_LOSS_RTOL = 1e-2
+
+
+def dryrun_records(cells, timeout=SPMD_DRYRUN_TIMEOUT) -> list[dict]:
+    """`repro_torch.launch.dryrun.run_cell` of each (arch, shape) on the
+    16x16 mesh, in a subprocess: the dry run's fake process group of 256
+    ranks must not meet this process's groups."""
+    script = ("import json, sys\n"
+              "from repro_torch.launch import dryrun\n"
+              "cells = json.loads(sys.argv[1])\n"
+              "print(json.dumps([dryrun.run_cell(a, s, False) for a, s in cells]))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    run = subprocess.run([sys.executable, "-c", script, json.dumps(cells)],
+                         capture_output=True, text=True, timeout=timeout, env=env,
+                         cwd=ROOT)
+    check(run.returncode == 0, f"dry run failed:\n{run.stderr[-3000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+@contextlib.contextmanager
+def one_rank_mesh(device="cuda"):
+    """A 1 x 1 (data, model) mesh over a process group of this process
+    alone (nccl on the card, gloo on the CPU), for the block."""
+    backend = {"cpu": "gloo"}.get(torch.device(device).type, "nccl")
+    with tempfile.TemporaryDirectory(prefix="spmd-") as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
+                                world_size=1, rank=0)
+        try:
+            yield make_dev_mesh(1, 1, device=device)
+        finally:
+            dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def routed_slots():
+    """(kept, offered) (token, expert) slots of every capacity-MoE call in
+    the block: offered T x top_k a layer, kept those with a capacity
+    slot. Reads each layer's count back to the host."""
+    tally, route = [0, 0], L._route
+
+    def counted(xg, router, k, cap, e_store):  # on local shards
+        out = route(xg, router, k, cap, e_store)
+        tally[0] += int((out[1] > 0).sum())
+        tally[1] += xg.shape[0] * xg.shape[1] * k
+        return out
+
+    L._route = counted
+    try:
+        yield tally
+    finally:
+        L._route = route
+
+
+def spmd_inputs(cfg, case, seed, device="cuda") -> dict:
+    """Tokens, labels and an all-ones mask drawn from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (case.global_batch, case.seq_len)
+    batch = {"tokens": torch.randint(0, cfg.vocab, shape, generator=gen,
+                                     device=device, dtype=torch.int32)}
+    if case.kind == "train":
+        batch["labels"] = torch.randint(0, cfg.vocab, shape, generator=gen,
+                                        device=device, dtype=torch.int32)
+        batch["mask"] = torch.ones(shape, device=device)
+    return batch
+
+
+def spmd_model(cfg, case, mesh, seed, device="cuda"):
+    """`lowerable`'s step with parameters from ``seed`` (and, for a train
+    step, fresh AdamW moments) and a batch, all distributed at its
+    in-shardings; returns (fn, args)."""
+    fn, _ = lowerable(cfg, case, mesh)
+    params = lm.init_params(torch.Generator(device=device).manual_seed(seed), cfg,
+                            device=device)
+    args = [distribute_tree(mesh, params, fn.in_shardings[0])]
+    if case.kind == "train":
+        args.append(distribute_tree(mesh, adamw_init(params), fn.in_shardings[1]))
+    del params
+    batch = spmd_inputs(cfg, case, seed + 1, device)
+    args.append(distribute_tree(mesh, batch, fn.in_shardings[-1]))
+    return fn, args
+
+
+def local(tree):
+    """The local tensors of a tree of DTensors (on a 1 x 1 mesh, the
+    whole tensors)."""
+    return tree_map(lambda t: t.to_local(), tree)
+
+
+def spmd_prefill_gate(cfg, case, mesh, seed, device="cuda") -> dict:
+    """Granite at capacity factor E / top_k (nothing drops) through
+    `lowerable` against the NO_POLICY prefill (the dropless MoE) on the
+    same parameters and tokens: last-token logits' relative L2."""
+    fn, (params, batch) = spmd_model(cfg, case, mesh, seed, device)
+    with routed_slots() as slots:
+        got = fn(params, batch)[0].to_local()
+    L.moe_dropless.host_reads = 0
+    want = make_prefill_step(cfg, case.seq_len)(local(params), local(batch))[0]
+    return {"rel_l2": _rel_l2(got, want), "kept": slots[0], "offered": slots[1],
+            "dropless_host_reads": L.moe_dropless.host_reads,
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def spmd_train_gate(cfg, case, mesh, seed, device="cuda") -> dict:
+    """The first `lowerable` train step's loss at capacity factor E /
+    top_k against the NO_POLICY step (dropless) on the same parameters,
+    moments and batch, with the same micro-batches."""
+    fn, (params, opt, batch) = spmd_model(cfg, case, mesh, seed, device)
+    got = fn(params, opt, batch)[2]["loss"].to_local().item()
+    step = make_train_step(cfg, AdamWConfig(),
+                           micro_batches=auto_micro_batches(cfg, case, mesh))
+    want = step(local(params), local(opt), local(batch))[2]["loss"].item()
+    return {"loss": got, "dropless_loss": want, "rel": abs(got - want) / abs(want)}
+
+
+def phase_spmd() -> dict:
+    """The dry run's records; Granite-MoE-3B's prefill at full width and
+    depth and its train step at 8 layers through `lowerable` on a 1 x 1
+    mesh under the SPMD policy (the capacity MoE, flash on local shards),
+    each held to the NO_POLICY path at a capacity where nothing drops.
+    Returns the phase's numbers and its flash launches."""
+    t0 = time.perf_counter()
+    card = card_line()
+    recs = dryrun_records(SPMD_DRYRUN_CELLS)
+    for rec in recs:
+        check(rec["status"] == "OK", f"dry run {rec}")
+        check(rec["flops"] > 0 and rec["collective_bytes"]["count"] > 0,
+              f"dry run {rec['arch']} {rec['shape']}: counted nothing")
+        print(f"[spmd] dry run {rec['arch']} x {rec['shape']} on {rec['mesh']} "
+              f"(fake process group, rank 0): {dryrun_summary(rec)}; analytic model "
+              f"flops {rec['analytic']['model_flops']:.4e}, roofline at "
+              f"{roofline.PEAK_FLOPS:.3g} FLOP/s, {roofline.HBM_BW:.3g} B/s, "
+              f"{roofline.ICI_BW:.3g} B/s (the card's peaks, not measured here)")
+    t_dry = time.perf_counter() - t0
+    cfg = load_config(SPMD_MODEL)
+    generous = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    prefill = ShapeCase("prefill", LM_PROMPT, LM_BATCH, "prefill")
+    cfg8 = dataclasses.replace(cfg, n_layers=SPMD_TRAIN_LAYERS)
+    train = ShapeCase("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    plan, plan8 = cfg.layer_plan(), cfg8.layer_plan()
+    n_attn = sum(m == "attn" for m, _ in plan)
+    n_attn8 = sum(m == "attn" for m, _ in plan8)
+    with one_rank_mesh() as mesh:
+        gate = spmd_prefill_gate(generous, prefill, mesh, SPMD_SEED)
+        check(gate["finite"] and gate["rel_l2"] <= CARD_CPU_REL_L2,
+              f"spmd prefill at capacity factor {generous.capacity_factor}: logits "
+              f"vs dropless rel L2 {gate['rel_l2']:.3g} (<= {CARD_CPU_REL_L2})")
+        check(gate["kept"] == gate["offered"], f"generous capacity dropped {gate}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        fn, (params, batch) = spmd_model(cfg, prefill, mesh, SPMD_SEED)
+        fn(params, batch)  # warm-up
+        with routed_slots() as slots:
+            logits, _ = fn(params, batch)
+        check(bool(torch.isfinite(logits.to_local()).all()), "spmd logits finite")
+        torch.cuda.synchronize()
+        reset_counts()  # the path starts here
+        L.moe_dropless.host_reads = 0
+        marks = []
+        for _ in range(SPMD_PREFILLS):
+            t = time.perf_counter()
+            out = fn(params, batch)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter() - t)
+        prefill_launches = counts()
+        host_reads = L.moe_dropless.host_reads
+        check(tuple(out[0].shape) == (LM_BATCH, cfg.vocab), "spmd logits shape")
+        check(prefill_launches["flash_attention"] == SPMD_PREFILLS * n_attn,
+              f"spmd prefill flash launches {prefill_launches}, want {n_attn} each")
+        check(host_reads == 0, f"capacity MoE read {host_reads} times to the host")
+        ms_prefill = sum(marks) / len(marks) * 1e3
+        dropped = 1 - slots[0] / slots[1]
+        del fn, params, batch, out, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[spmd] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.n_experts} experts "
+              f"(banks {cfg.expert_pad_to}), top {cfg.top_k}, bf16, `lowerable` "
+              f"prefill B {LM_BATCH} x {LM_PROMPT} on a 1 x 1 mesh: "
+              f"{ms_prefill:.3f} ms per prefill (host clock to the sync, "
+              f"{SPMD_PREFILLS} after a warm-up: {[round(m * 1e3, 3) for m in marks]}); "
+              f"flash launches {prefill_launches['flash_attention'] // SPMD_PREFILLS} "
+              f"a prefill; MoE host reads {host_reads}; at capacity factor "
+              f"{cfg.capacity_factor} {dropped * 100:.3f}% of (token, expert) slots "
+              f"dropped ({slots[1] - slots[0]} of {slots[1]}); at {generous.capacity_factor:g}"
+              f" the last-token logits vs the NO_POLICY dropless prefill rel L2 "
+              f"{gate['rel_l2']:.4g} (<= {CARD_CPU_REL_L2}; the dropless MoE read "
+              f"{gate['dropless_host_reads']} times); {card}")
+        tgate = spmd_train_gate(dataclasses.replace(generous, n_layers=SPMD_TRAIN_LAYERS),
+                                train, mesh, SPMD_SEED + 2)
+        check(tgate["rel"] <= SPMD_LOSS_RTOL,
+              f"spmd train loss {tgate['loss']} vs dropless {tgate['dropless_loss']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        fn, (params, opt, batch) = spmd_model(cfg8, train, mesh, SPMD_SEED + 2)
+        micro = auto_micro_batches(cfg8, train, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        losses, marks = [], []
+        for i in range(1 + SPMD_STEPS):
+            if i == 1:
+                reset_counts()  # the path starts after the warm-up
+            t = time.perf_counter()
+            params, opt, metrics = fn(params, opt, batch)
+            losses.append(metrics["loss"].to_local().item())
+            marks.append(time.perf_counter() - t)
+        train_launches = dict(counts(),
+                              flash_attention_backward=flash_attention_backward_call.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del fn, params, opt, batch, metrics
+    check(all(math.isfinite(x) for x in losses), f"spmd train losses {losses}")
+    want_fwd, want_bwd = 2 * n_attn8 * micro, n_attn8 * micro
+    check(train_launches["flash_attention"] == SPMD_STEPS * want_fwd
+          and train_launches["flash_attention_backward"] == SPMD_STEPS * want_bwd,
+          f"spmd train launches {train_launches}, want {want_fwd} / {want_bwd} a step")
+    ms_step = sum(marks[1:]) / SPMD_STEPS * 1e3
+    model_flops = roofline.analytic_cost(cfg8, train).model_flops
+    rate = model_flops / (ms_step / 1e3)
+    print(f"[spmd] {cfg8.name} at {SPMD_TRAIN_LAYERS} layers: `lowerable` train step B "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} ({micro} micro-batches, remat), bf16 "
+          f"parameters, fp32 AdamW moments: {ms_step:.3f} ms per step (host clock to "
+          f"the loss read back, {SPMD_STEPS} after a warm-up: "
+          f"{[round(m * 1e3, 3) for m in marks[1:]]}), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / (ms_step / 1e3):.1f} tokens/s, card peak "
+          f"memory {peak_gb:.3f} GB; flash launches a step "
+          f"{train_launches['flash_attention'] // SPMD_STEPS} forward, "
+          f"{train_launches['flash_attention_backward'] // SPMD_STEPS} backward; losses "
+          f"{[round(x, 4) for x in losses]}; model FLOP rate {rate / 1e12:.3f} TFLOP/s "
+          f"({model_flops:.4e} model flops a step, analytic_cost), "
+          f"{rate / roofline.PEAK_FLOPS * 100:.2f}% of {roofline.PEAK_FLOPS / 1e12:g} "
+          f"TFLOP/s; first step at capacity factor {generous.capacity_factor:g}: loss "
+          f"{tgate['loss']:.6f} vs the NO_POLICY dropless step's "
+          f"{tgate['dropless_loss']:.6f}, rel {tgate['rel']:.3g} (<= {SPMD_LOSS_RTOL}); "
+          f"{card}")
+    secs = time.perf_counter() - t0
+    print(f"[spmd] phase: {secs:.3f} s (the dry run {t_dry:.3f} s)")
+    launches = (prefill_launches["flash_attention"]
+                + train_launches["flash_attention"])
+    return {"launches": launches,
+            "backward_launches": train_launches["flash_attention_backward"],
+            "prefill_ms": ms_prefill, "prefill_flash": n_attn, "dropped": dropped,
+            "gate_rel_l2": gate["rel_l2"], "train_ms": ms_step, "peak_gb": peak_gb,
+            "model_flop_rate": rate, "loss_rel": tgate["rel"], "seconds": secs,
+            "dryrun": recs}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2941,6 +3243,7 @@ def main() -> int:
                for i, (name, n, q) in enumerate(LM_MODELS)}
     bwd_row, train = phase_train()
     pipeline = phase_pipeline()
+    spmd = phase_spmd()
     pmm = kernel_entry(
         "preemptible_matmul_window", "src/repro_torch/csrc/preemptible_matmul.cu",
         "src/repro/kernels/preemptible_matmul/kernel.py:36", "mma.sync",
@@ -2957,11 +3260,11 @@ def main() -> int:
         "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:32", "wgmma",
         lm_runs["mistral_nemo_12b"]["launches"]["flash_attention"]
-        + pipeline["launches"], flash_row,
+        + pipeline["launches"] + spmd["launches"], flash_row,
     )
     flash.update(launches_by_path={
                      "lm": lm_runs["mistral_nemo_12b"]["launches"]["flash_attention"],
-                     "pipeline": pipeline["launches"]},
+                     "pipeline": pipeline["launches"], "spmd": spmd["launches"]},
                  split_floor_ms=flash_row["split_floor_ms"],
                  shape={k: flash_row[k] for k in ("B", "S", "H", "Hkv", "hd", "dtype")})
     wkv = kernel_entry(
@@ -2979,9 +3282,13 @@ def main() -> int:
     bwd = kernel_entry(
         "flash_attention_backward", "src/repro_torch/csrc/flash_attention_bwd.cu",
         "src/repro/models/layers.py:140", "wgmma",
-        train["launches"]["flash_attention_backward"], bwd_row,
+        train["launches"]["flash_attention_backward"] + spmd["backward_launches"],
+        bwd_row,
     )
-    bwd.update(split_floor_ms=bwd_row["split_floor_ms"],
+    bwd.update(launches_by_path={
+                   "train": train["launches"]["flash_attention_backward"],
+                   "spmd": spmd["backward_launches"]},
+               split_floor_ms=bwd_row["split_floor_ms"],
                shape={k: bwd_row[k] for k in ("B", "S", "H", "Hkv", "hd", "dtype")})
     rwkv_train = train["recurrent"]["rwkv6_7b"]["launches"]
     jamba_train = train["recurrent"]["jamba_v0_1_52b"]["launches"]

@@ -14,6 +14,17 @@ transposed on either side of the call.
 `ref.attention_backward_plain` for CPU tensors, with the same rule. It
 takes the log-sum-exp that the forward returns with ``return_lse=True``
 and recomputes no softmax statistics.
+
+Both are ``torch.library`` custom ops (``repro_torch::flash_attention``
+and ``repro_torch::flash_attention_backward``): the plain version is the
+CPU kernel, the CUDA kernel the CUDA one, and the dispatcher routes by
+device; an op has no other device's kernel, so a tensor elsewhere
+raises. Each op has a fake implementation (its output shapes, for
+``FakeTensorMode``) and a flop formula (`attention_flops`,
+`attention_backward_flops`, the operation counts `chip_smoke.py`'s
+bounds use), so a traced step sees the kernel's shapes and operations,
+not the plain version's (S, S) scores. `forward_cuda` and
+`backward_cuda` are the direct kernel calls behind the CUDA kernels.
 """
 from __future__ import annotations
 
@@ -21,6 +32,8 @@ import ctypes
 import functools
 
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch._build import load_library
 from repro_torch.kernels.flash_attention.ref import (
@@ -105,6 +118,83 @@ def _check_cuda(tensors) -> None:
         raise ValueError(f"grid too large for B*H={B * H}, S={S}")
 
 
+def attention_flops(B, S, H, hd, causal=True) -> float:
+    """Operations of the attention function: 4 * hd per (query, key)
+    pair it keeps (s = q kᵀ and o = p v, 2 * hd each), the keys at or
+    before the query when causal."""
+    pairs = S * (S + 1) / 2 if causal else float(S * S)
+    return 4.0 * hd * B * H * pairs
+
+
+def attention_backward_flops(B, S, H, hd, causal=True) -> float:
+    """Operations of its gradient: five products of 2 * hd per kept
+    (query, key) pair (s, dP, dV, dQ, dK)."""
+    return 2.5 * attention_flops(B, S, H, hd, causal)
+
+
+def _no_lse(q):
+    """The empty log-sum-exp a forward returns when not asked for one."""
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+def forward_cuda(q, k, v, causal: bool = True, return_lse: bool = False):
+    """The direct kernel call: (out, lse) from one launch of the CUDA
+    kernel (lse empty unless ``return_lse``). Checks what the kernel
+    takes and adds one to ``flash_attention_call.launches``."""
+    _check(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check_cuda((q, k, v))
+    if q.dtype == torch.bfloat16 and any(
+        t.data_ptr() % _ALIGN for t in (q, k, v)
+    ):
+        raise ValueError(f"bf16 q, k and v must be {_ALIGN}-byte aligned")
+    B, S, H, hd = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else _no_lse(q))
+    fn = _kernel(q.dtype)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None,
+            B, S, H, k.shape[2], hd, int(bool(causal)), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    flash_attention_call.launches += 1
+    return out, lse
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def flash_attention_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                       return_lse: bool) -> tuple[Tensor, Tensor]:
+    """(out, lse): the plain version on the CPU, the kernel on CUDA."""
+    if return_lse:
+        out, lse = attention_plain(q, k, v, causal=causal, return_lse=True)
+        return out.contiguous(), lse.contiguous()
+    return attention_plain(q, k, v, causal=causal).contiguous(), _no_lse(q)
+
+
+flash_attention_op.register_kernel("cuda")(forward_cuda)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, return_lse):
+    B, S, H, _ = q.shape
+    lse = (q.new_empty((B, H, S), dtype=torch.float32) if return_lse
+           else _no_lse(q))
+    return torch.empty_like(q), lse
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q_shape, k_shape, v_shape, causal, return_lse, *, out_shape=None, **kw):
+    B, S, H, hd = q_shape
+    return int(attention_flops(B, S, H, hd, causal))
+
+
 def flash_attention_call(q, k, v, *, causal: bool = True,
                          return_lse: bool = False):
     """softmax(q kᵀ · hd^-½) v per head, causal by default.
@@ -117,33 +207,13 @@ def flash_attention_call(q, k, v, *, causal: bool = True,
     either way. On CUDA the tensors must be contiguous (bf16 ones also
     16-byte aligned) and hd 64 or 128; the kernel runs on the current
     stream and each launch adds one to ``flash_attention_call.launches``.
-    CPU tensors take the plain version and count nothing.
+    CPU tensors take the plain version and count nothing. The call goes
+    through the ``repro_torch::flash_attention`` op.
     """
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal, return_lse=return_lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {q.device}")
-    _check_cuda((q, k, v))
-    if q.dtype == torch.bfloat16 and any(
-        t.data_ptr() % _ALIGN for t in (q, k, v)
-    ):
-        raise ValueError(f"bf16 q, k and v must be {_ALIGN}-byte aligned")
-    B, S, H, hd = q.shape
-    out = torch.empty_like(q)
-    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-           if return_lse else None)
-    fn = _kernel(q.dtype)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            B, S, H, k.shape[2], hd, int(bool(causal)), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    flash_attention_call.launches += 1
+    out, lse = flash_attention_op(q, k, v, causal, return_lse)
     return (out, lse) if return_lse else out
 
 
@@ -151,21 +221,7 @@ def flash_attention_call(q, k, v, *, causal: bool = True,
 flash_attention_call.launches = 0
 
 
-def flash_attention_backward_call(q, k, v, o, do, lse, *, causal: bool = True):
-    """Gradients (dq, dk, dv) of ``o, lse = flash_attention_call(q, k, v,
-    return_lse=True)`` for the cotangent ``do`` of o.
-
-    q, o, do: (B, S, H, hd); k, v: (B, S, Hkv, hd); all float32 or all
-    bfloat16, on one device; lse: the forward's (B, H, S) fp32
-    log-sum-exp, from which P is rebuilt. Returns dq like q and dk, dv
-    like k, in q's dtype; dk and dv of a KV head sum over its group's
-    query heads. On CUDA every tensor must be contiguous, q, k, v, o and
-    do 16-byte aligned, and hd 64 or 128; the kernels run on the current
-    stream, write each gradient element once (no atomics, so results are
-    bit-identical from launch to launch), and a call adds one to
-    ``flash_attention_backward_call.launches``. CPU tensors take the
-    plain version and count nothing.
-    """
+def _check_backward(q, k, v, o, do, lse) -> None:
     _check(q, k, v)
     for name, t in (("o", o), ("do", do)):
         if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype:
@@ -181,11 +237,17 @@ def flash_attention_backward_call(q, k, v, o, do, lse, *, causal: bool = True):
             f"lse must be float32 {(B, H, S)}, got {lse.dtype} {tuple(lse.shape)}")
     if lse.device != q.device:
         raise ValueError(f"lse on {lse.device}, q on {q.device}")
-    if q.device.type == "cpu":
-        return attention_backward_plain(q, k, v, o, do, lse, causal=causal)
+
+
+def backward_cuda(q, k, v, o, do, lse, causal: bool = True):
+    """The direct call of the backward kernels: (dq, dk, dv). Checks what
+    the kernels take and adds one to
+    ``flash_attention_backward_call.launches``."""
+    _check_backward(q, k, v, o, do, lse)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check_cuda((q, k, v, o, do, lse))
+    B, S, H, hd = q.shape
     if any(t.data_ptr() % _ALIGN for t in (q, k, v, o, do)):
         raise ValueError(f"q, k, v, o and do must be {_ALIGN}-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -204,6 +266,53 @@ def flash_attention_backward_call(q, k, v, o, do, lse, *, causal: bool = True):
             f"flash_attention backward launch failed: CUDA error {err}")
     flash_attention_backward_call.launches += 1
     return dq, dk, dv
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward",
+                         mutates_args=(), device_types="cpu")
+def flash_attention_backward_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                                do: Tensor, lse: Tensor, causal: bool
+                                ) -> tuple[Tensor, Tensor, Tensor]:
+    """(dq, dk, dv): the plain version on the CPU, the kernels on CUDA."""
+    grads = attention_backward_plain(q, k, v, o, do, lse, causal=causal)
+    return tuple(g.contiguous() for g in grads)
+
+
+flash_attention_backward_op.register_kernel("cuda")(backward_cuda)
+
+
+@flash_attention_backward_op.register_fake
+def _(q, k, v, o, do, lse, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
+def _(q_shape, k_shape, v_shape, o_shape, do_shape, lse_shape, causal, *,
+      out_shape=None, **kw):
+    B, S, H, hd = q_shape
+    return int(attention_backward_flops(B, S, H, hd, causal))
+
+
+def flash_attention_backward_call(q, k, v, o, do, lse, *, causal: bool = True):
+    """Gradients (dq, dk, dv) of ``o, lse = flash_attention_call(q, k, v,
+    return_lse=True)`` for the cotangent ``do`` of o.
+
+    q, o, do: (B, S, H, hd); k, v: (B, S, Hkv, hd); all float32 or all
+    bfloat16, on one device; lse: the forward's (B, H, S) fp32
+    log-sum-exp, from which P is rebuilt. Returns dq like q and dk, dv
+    like k, in q's dtype; dk and dv of a KV head sum over its group's
+    query heads. On CUDA every tensor must be contiguous, q, k, v, o and
+    do 16-byte aligned, and hd 64 or 128; the kernels run on the current
+    stream, write each gradient element once (no atomics, so results are
+    bit-identical from launch to launch), and a call adds one to
+    ``flash_attention_backward_call.launches``. CPU tensors take the
+    plain version and count nothing. The call goes through the
+    ``repro_torch::flash_attention_backward`` op.
+    """
+    _check_backward(q, k, v, o, do, lse)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {q.device}")
+    return flash_attention_backward_op(q, k, v, o, do, lse, causal)
 
 
 #: backward calls that launched the kernels since the count was last set

@@ -10,6 +10,13 @@ time, and writes y through their strides.
 `rwkv6_scan_backward_call` is its gradient: the kernels of
 ``repro_torch/csrc/rwkv6_scan_bwd.cu`` for CUDA tensors, the plain
 `ref.rwkv6_scan_backward_plain` for CPU tensors, with the same rule.
+
+Both are ``torch.library`` custom ops (``repro_torch::rwkv6_scan`` and
+``repro_torch::rwkv6_scan_backward``): the plain version is the CPU
+kernel, the CUDA kernel the CUDA one, and the dispatcher routes by
+device. Each has a fake implementation and a flop formula (`wkv_flops`,
+`wkv_backward_flops`, the counts `chip_smoke.py`'s bounds use).
+`forward_cuda` and `backward_cuda` are the direct kernel calls.
 """
 from __future__ import annotations
 
@@ -17,6 +24,8 @@ import ctypes
 import functools
 
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch._build import load_library
 from repro_torch.kernels.rwkv6_scan.ref import (
@@ -36,6 +45,22 @@ STAGE_STEPS = 32
 #: ``rwkv6_scan_bwd.cu``)
 BWD_CHUNK, BWD_GROUPS = 32, 4
 _INT32_MAX = 2**31 - 1
+#: fp32 FMA-class operations the backward needs per state element and
+#: step: the states again (w S + k v: 3), S dy (2), G's update (3), G v
+#: (2), Gᵀ k (2); dw's walk and the bonus term are O(hd) a step
+BWD_FLOPS = 12
+
+
+def wkv_flops(B, S, H, hd) -> float:
+    """Operations of WKV-6, per step and head: the state update w * S +
+    k vᵀ is 3 per state element and rᵀ S is 2; the bonus rᵀ diag(u) k vᵀ
+    is (sum_i r_i u_i k_i) v, 3 per row to reduce and 2 per column."""
+    return float(B * S * H) * (5 * hd * hd + 5 * hd)
+
+
+def wkv_backward_flops(B, S, H, hd) -> float:
+    """Operations of its gradient: BWD_FLOPS per state element and step."""
+    return float(BWD_FLOPS) * B * S * H * hd * hd
 
 
 @functools.cache
@@ -102,21 +127,10 @@ def _check_cuda(shape, ops, *, aligned, why) -> None:
         raise ValueError(f"grid too large for B*H={B * H}")
 
 
-def rwkv6_scan_call(r, k, v, w, u, *, chunk: int = MAX_CHUNK):
-    """WKV-6 from a zero state: ``S_t = diag(w_t) S_{t-1} + k_t v_tᵀ``,
-    ``y_t = r_tᵀ (S_{t-1} + diag(u) k_t v_tᵀ)``.
-
-    r, k, v, w: (B, S, H, hd); u: (H, hd). Returns (y (B, S, H, hd),
-    S_final (B, H, hd, hd)), float32. On CUDA every operand must be
-    float32 and contiguous, r, k, v, w 16-byte aligned, and hd 64; the
-    kernel is a step-by-step recurrence whose result does not depend on
-    ``chunk``, runs on the current stream, and each launch adds one to
-    ``rwkv6_scan_call.launches``. CPU tensors take the plain chunked
-    version and count nothing.
-    """
+def forward_cuda(r, k, v, w, u, chunk: int = MAX_CHUNK):
+    """The direct kernel call: (y, S_final) from one launch. Checks what
+    the kernel takes and adds one to ``rwkv6_scan_call.launches``."""
     _check(r, k, v, w, u, chunk)
-    if r.device.type == "cpu":
-        return rwkv6_scan_plain(r, k, v, w, u, chunk=chunk)
     if r.device.type != "cuda":
         raise ValueError(f"no kernel for device {r.device}")
     B, S, H, hd = r.shape
@@ -135,29 +149,53 @@ def rwkv6_scan_call(r, k, v, w, u, *, chunk: int = MAX_CHUNK):
     return y, s_final
 
 
+@torch.library.custom_op("repro_torch::rwkv6_scan", mutates_args=(),
+                         device_types="cpu")
+def rwkv6_scan_op(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+                  chunk: int) -> tuple[Tensor, Tensor]:
+    """(y, S_final): the plain version on the CPU, the kernel on CUDA."""
+    y, s_final = rwkv6_scan_plain(r, k, v, w, u, chunk=chunk)
+    return y.contiguous(), s_final.contiguous()
+
+
+rwkv6_scan_op.register_kernel("cuda")(forward_cuda)
+
+
+@rwkv6_scan_op.register_fake
+def _(r, k, v, w, u, chunk):
+    B, _, H, hd = r.shape
+    return torch.empty_like(r), r.new_empty((B, H, hd, hd))
+
+
+@register_flop_formula(torch.ops.repro_torch.rwkv6_scan)
+def _(r_shape, *shapes, out_shape=None, **kw):
+    return int(wkv_flops(*r_shape))
+
+
+def rwkv6_scan_call(r, k, v, w, u, *, chunk: int = MAX_CHUNK):
+    """WKV-6 from a zero state: ``S_t = diag(w_t) S_{t-1} + k_t v_tᵀ``,
+    ``y_t = r_tᵀ (S_{t-1} + diag(u) k_t v_tᵀ)``.
+
+    r, k, v, w: (B, S, H, hd); u: (H, hd). Returns (y (B, S, H, hd),
+    S_final (B, H, hd, hd)), float32. On CUDA every operand must be
+    float32 and contiguous, r, k, v, w 16-byte aligned, and hd 64; the
+    kernel is a step-by-step recurrence whose result does not depend on
+    ``chunk``, runs on the current stream, and each launch adds one to
+    ``rwkv6_scan_call.launches``. CPU tensors take the plain chunked
+    version and count nothing. The call goes through the
+    ``repro_torch::rwkv6_scan`` op.
+    """
+    _check(r, k, v, w, u, chunk)
+    if r.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {r.device}")
+    return rwkv6_scan_op(r, k, v, w, u, chunk)
+
+
 #: kernel launches since the count was last set to 0 (CUDA path only)
 rwkv6_scan_call.launches = 0
 
 
-def rwkv6_scan_backward_call(r, k, v, w, u, dy, ds_final=None):
-    """Gradient of `rwkv6_scan_call`: the cotangents ``dy`` of y
-    (B, S, H, hd) and ``ds_final`` of S_final (B, H, hd, hd; zero when
-    None) to (dr, dk, dv, dw (B, S, H, hd), du (H, hd)), float32.
-
-    On CUDA every operand must be float32, contiguous, 16-byte aligned
-    (cp.async), and hd 64. The call runs three kernels on the current
-    stream (a forward sweep, a reverse sweep over BWD_GROUPS column
-    groups of the state, du's sum over the batch), with no atomics, so
-    two calls give the same bits; each call adds one to
-    ``rwkv6_scan_backward_call.launches``. Its scratch is the state
-    after every BWD_CHUNK steps and after the last,
-    (B, H, ceil(S / BWD_CHUNK), hd, hd) fp32. The
-    decays must lie in (0, 1): the kernel takes dw as a difference of
-    row sums divided by w, so dw's rounding grows as 1/w (about 2e-7 / w
-    of its max; w 0.01 is within 1e-4), and w = 0 divides by zero. The
-    model's decay clamp keeps w at or above 0.69. CPU tensors take the
-    plain version (dw summed directly, no division) and count nothing.
-    """
+def _check_backward(r, k, v, w, u, dy, ds_final) -> list:
     _check(r, k, v, w, u, MAX_CHUNK)
     B, S, H, hd = r.shape
     if tuple(dy.shape) != (B, S, H, hd):
@@ -168,10 +206,17 @@ def rwkv6_scan_backward_call(r, k, v, w, u, dy, ds_final=None):
     ops = [t for t in (r, k, v, w, u, dy, ds_final) if t is not None]
     if len({t.device for t in ops}) != 1:
         raise ValueError("operands on different devices")
-    if r.device.type == "cpu":
-        return rwkv6_scan_backward_plain(r, k, v, w, u, dy, ds_final)
+    return ops
+
+
+def backward_cuda(r, k, v, w, u, dy, ds_final=None):
+    """The direct call of the backward kernels: (dr, dk, dv, dw, du).
+    Checks what they take and adds one to
+    ``rwkv6_scan_backward_call.launches``."""
+    ops = _check_backward(r, k, v, w, u, dy, ds_final)
     if r.device.type != "cuda":
         raise ValueError(f"no kernel for device {r.device}")
+    B, S, H, hd = r.shape
     _check_cuda(r.shape, ops, aligned=ops, why="cp.async")
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty((H, hd), dtype=torch.float32, device=r.device)
@@ -192,6 +237,58 @@ def rwkv6_scan_backward_call(r, k, v, w, u, dy, ds_final=None):
         raise RuntimeError(f"rwkv6_scan backward launch failed: CUDA error {err}")
     rwkv6_scan_backward_call.launches += 1
     return dr, dk, dv, dw, du
+
+
+
+
+@torch.library.custom_op("repro_torch::rwkv6_scan_backward", mutates_args=(),
+                         device_types="cpu")
+def rwkv6_scan_backward_op(r: Tensor, k: Tensor, v: Tensor, w: Tensor,
+                           u: Tensor, dy: Tensor, ds_final: Tensor | None
+                           ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """(dr, dk, dv, dw, du): the plain version on the CPU, the kernels on
+    CUDA."""
+    grads = rwkv6_scan_backward_plain(r, k, v, w, u, dy, ds_final)
+    return tuple(g.contiguous() for g in grads)
+
+
+rwkv6_scan_backward_op.register_kernel("cuda")(backward_cuda)
+
+
+@rwkv6_scan_backward_op.register_fake
+def _(r, k, v, w, u, dy, ds_final):
+    return (*(torch.empty_like(r) for _ in range(4)), torch.empty_like(u))
+
+
+@register_flop_formula(torch.ops.repro_torch.rwkv6_scan_backward)
+def _(r_shape, *shapes, out_shape=None, **kw):
+    return int(wkv_backward_flops(*r_shape))
+
+
+def rwkv6_scan_backward_call(r, k, v, w, u, dy, ds_final=None):
+    """Gradient of `rwkv6_scan_call`: the cotangents ``dy`` of y
+    (B, S, H, hd) and ``ds_final`` of S_final (B, H, hd, hd; zero when
+    None) to (dr, dk, dv, dw (B, S, H, hd), du (H, hd)), float32.
+
+    On CUDA every operand must be float32, contiguous, 16-byte aligned
+    (cp.async), and hd 64. The call runs three kernels on the current
+    stream (a forward sweep, a reverse sweep over BWD_GROUPS column
+    groups of the state, du's sum over the batch), with no atomics, so
+    two calls give the same bits; each call adds one to
+    ``rwkv6_scan_backward_call.launches``. Its scratch is the state
+    after every BWD_CHUNK steps and after the last,
+    (B, H, ceil(S / BWD_CHUNK), hd, hd) fp32. The
+    decays must lie in (0, 1): the kernel takes dw as a difference of
+    row sums divided by w, so dw's rounding grows as 1/w (about 2e-7 / w
+    of its max; w 0.01 is within 1e-4), and w = 0 divides by zero. The
+    model's decay clamp keeps w at or above 0.69. CPU tensors take the
+    plain version (dw summed directly, no division) and count nothing.
+    The call goes through the ``repro_torch::rwkv6_scan_backward`` op.
+    """
+    _check_backward(r, k, v, w, u, dy, ds_final)
+    if r.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {r.device}")
+    return rwkv6_scan_backward_op(r, k, v, w, u, dy, ds_final)
 
 
 #: calls that launched the backward kernels since the count was last set

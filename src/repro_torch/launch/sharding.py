@@ -29,10 +29,10 @@ mamba, rwkv, moe leaves).
 """
 from __future__ import annotations
 
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import Placement, Replicate, Shard, distribute_tensor
 
 from repro_torch.launch.mesh import axis_sizes, batch_axes
-from repro_torch.tree import flatten_with_paths, tree_map, unflatten
+from repro_torch.tree import flatten, flatten_with_paths, tree_map, unflatten
 
 # param names that are row-parallel (input dim on `model`)
 _ROW_PARALLEL = {"wo", "w_out", "out_proj"}
@@ -92,14 +92,18 @@ def param_spec(path: str, leaf, model_size: int | None = None) -> tuple:
 def placements(mesh, spec) -> tuple:
     """DTensor placements of ``spec`` on ``mesh``: per mesh dim,
     ``Shard(d)`` where the spec names that axis at tensor dim ``d``,
-    else ``Replicate()``."""
+    else ``Replicate()``. An axis of size 1 replicates: a shard over one
+    rank is the whole tensor, and DTensor would refuse views that drop
+    such a dim (a 1 x 1 mesh then runs every op locally)."""
     out = [Replicate()] * mesh.ndim
     names = mesh.mesh_dim_names
     for dim, axes in enumerate(spec):
         if axes is None:
             continue
         for axis in (axes if isinstance(axes, tuple) else (axes,)):
-            out[names.index(axis)] = Shard(dim)
+            i = names.index(axis)
+            if mesh.size(i) > 1:
+                out[i] = Shard(dim)
     return tuple(out)
 
 
@@ -185,3 +189,27 @@ def cache_shardings(mesh, cache_tree, *, seq_sharded: bool = False):
 
 def replicated(mesh) -> tuple:
     return (Replicate(),) * mesh.ndim
+
+
+def is_placements(node) -> bool:
+    """Whether ``node`` is one tensor's placements (a leaf of a shardings
+    tree)."""
+    return (isinstance(node, tuple) and len(node) > 0
+            and all(isinstance(p, Placement) for p in node))
+
+
+def placement_leaves(shardings) -> list:
+    """A shardings tree's leaves, one tuple of placements per tensor."""
+    return flatten(shardings, is_leaf=is_placements)[0]
+
+
+def distribute_tree(mesh, tree, shardings):
+    """Every tensor of ``tree`` as a DTensor on ``mesh`` at its placements
+    in ``shardings`` (a tree like it, from `shardings_for_tree` and the
+    others above): ``distribute_tensor``, so rank 0's values go to every
+    rank."""
+    leaves, treedef = flatten(tree)
+    return unflatten(treedef, [
+        distribute_tensor(t, mesh, list(pl))
+        for t, pl in zip(leaves, placement_leaves(shardings))
+    ])

@@ -9,6 +9,10 @@ grad its gradient is the hand-written backward kernels
 (``csrc/mamba_scan_bwd.cu``) on the card and their plain version on the
 CPU.
 
+``entry_pin`` and ``inner_pin`` are the reference's activation pins (the
+normed input; the (B, S, d_inner) channels over ``model``); under them
+the scan runs on each rank's channels (`spmd.on_shards`).
+
 Decode keeps ``(conv, ssm)`` states and advances one token in plain
 tensor code, as the reference does. The bf16 rounding points are the
 reference's: the causal conv sums its ``dc`` products in order in the
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.module import dense_init, ones, zeros
+from repro_torch.models.spmd import is_sharded, on_shards, reduced, residual
 
 
 def mamba_init(gen, cfg, dtype=torch.bfloat16, *, device="cuda"):
@@ -49,7 +54,9 @@ def _split_xproj(p, xs, cfg):
     """(dt, B, C): dt = softplus(dt_proj(.) + dt_bias) and B, C, all fp32."""
     dt_rank = p["dt_proj"].shape[0]
     ns = cfg.mamba_d_state
-    proj = xs @ p["x_proj"]
+    # under the channel pin this contracts d_inner over `model`: reduce
+    # the partial sums here, or DTensor may reduce-scatter them over S
+    proj = reduced(xs @ p["x_proj"])
     dt, B, C = torch.split(proj, [dt_rank, ns, ns], dim=-1)
     dt = F.softplus((dt @ p["dt_proj"]).float() + p["dt_bias"])  # (..., di)
     return dt, B.float(), C.float()
@@ -65,27 +72,43 @@ def _causal_conv(p, x, cfg):
     return F.silu(out + p["conv_b"])
 
 
-def mamba(p, x, cfg):
+def mamba(p, x, cfg, inner_pin=None, entry_pin=None):
     """Full-sequence mamba mixer. x: (B, S, d)."""
-    return _mamba_impl(p, x, cfg)[0]
+    return _mamba_impl(p, x, cfg, inner_pin, entry_pin)[0]
 
 
-def mamba_prefill(p, x, cfg):
+def mamba_prefill(p, x, cfg, inner_pin=None, entry_pin=None):
     """Full-sequence mixer that also emits the decode cache
     ``{"conv": (B, dc-1, di) bf16, "ssm": (B, di, ns) fp32}``."""
-    return _mamba_impl(p, x, cfg)
+    return _mamba_impl(p, x, cfg, inner_pin, entry_pin)
 
 
-def _mamba_impl(p, x, cfg):
+def _mamba_impl(p, x, cfg, inner_pin=None, entry_pin=None):
     Bb, S, _ = x.shape
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    if entry_pin is not None:
+        xn = entry_pin(xn)
     xz = xn @ p["in_proj"]
     xs, z = torch.chunk(xz, 2, dim=-1)
     xs = _causal_conv(p, xs, cfg)
+    if inner_pin is not None:
+        # d_inner is the scan's parallel axis: its workspaces shard with it
+        xs = inner_pin(xs)
     dt, Bt, Ct = _split_xproj(p, xs, cfg)
+    if inner_pin is not None:
+        dt = inner_pin(dt)
     A = -torch.exp(p["A_log"])  # (di, ns)
     xs_f = xs.float()
-    y, h_final = mamba_scan(dt, Bt, Ct, xs_f, A, chunk=cfg.mamba_chunk)
+    scan = lambda *ops: mamba_scan(*ops, chunk=cfg.mamba_chunk)  # noqa: E731
+    if is_sharded(xs_f):
+        ch = 2 if inner_pin is not None else None
+        y, h_final = on_shards(
+            scan, (dt, Bt, Ct, xs_f, A),
+            ((0, ch), (0, None), (0, None), (0, ch), (None, 0)),
+            ((0, ch), (0, 1 if ch else None)),
+            (xs_f.shape, (Bb, cfg.d_inner, cfg.mamba_d_state)))
+    else:
+        y, h_final = scan(dt, Bt, Ct, xs_f, A)
     y = y + xs_f * p["D"]
     out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
     # the conv cache holds the last dc-1 pre-conv inputs: recompute them
@@ -93,7 +116,7 @@ def _mamba_impl(p, x, cfg):
     dc = cfg.mamba_d_conv
     xz_tail = rms_norm(x[:, S - (dc - 1) :], p["norm"], cfg.norm_eps) @ p["in_proj"]
     conv_cache = torch.chunk(xz_tail, 2, dim=-1)[0].to(torch.bfloat16)
-    return x + out, {"conv": conv_cache.contiguous(), "ssm": h_final}
+    return residual(x, out), {"conv": conv_cache.contiguous(), "ssm": h_final}
 
 
 def mamba_cache_init(cfg, batch: int, dtype=torch.float32, *, device="cuda"):

@@ -23,26 +23,26 @@ def _children(tree):
     return None
 
 
-def flatten_with_paths(tree) -> tuple[list[str], list, object]:
+def flatten_with_paths(tree, is_leaf=None) -> tuple[list[str], list, object]:
     """(paths, leaves, treedef); ``unflatten(treedef, leaves)`` rebuilds
-    the tree."""
+    the tree. ``is_leaf(node)`` true makes a container a leaf."""
     if tree is None:
         return [], [], None
-    node = _children(tree)
+    node = None if is_leaf is not None and is_leaf(tree) else _children(tree)
     if node is None:
         return [""], [tree], "leaf"
     keys, kids, rebuild = node
     paths, leaves, defs = [], [], []
     for key, kid in zip(keys, kids):
-        p, l, d = flatten_with_paths(kid)
+        p, l, d = flatten_with_paths(kid, is_leaf)
         paths += [key if not s else f"{key}/{s}" for s in p]
         leaves += l
         defs.append((d, len(l)))
     return paths, leaves, (rebuild, defs)
 
 
-def flatten(tree) -> tuple[list, object]:
-    _, leaves, treedef = flatten_with_paths(tree)
+def flatten(tree, is_leaf=None) -> tuple[list, object]:
+    _, leaves, treedef = flatten_with_paths(tree, is_leaf)
     return leaves, treedef
 
 

@@ -48,7 +48,13 @@ time, a `run_case` equals the CPU run's, and the wall-clock case at the
 reference's own test settings comes back clean. The pipeline executor:
 two stage ranks sharing the card over gloo give `reference_backbone`'s
 output bit for bit (the same kernels at the same shapes in each
-process), with one flash launch per microbatch per layer.
+process), with one flash launch per microbatch per layer. The kernels'
+custom ops: each ``repro_torch::`` op routes a card tensor to its
+kernel, one launch, the direct call's bits. The SPMD policy:
+`layers.moe_capacity` on the card against the CPU's (fp32, 1e-4 of the
+max); smoke Granite-MoE through `lowerable` on a one-card mesh (fp32
+logits against the NO_POLICY prefill, 1e-4); a `lowerable` train step
+on a 2 x 2 mesh of four cards against one card (skips on fewer).
 """
 import dataclasses
 import importlib.util
@@ -1249,3 +1255,157 @@ def test_pipeline_executor_over_nccl_with_a_card_per_stage(card):
     per = cfg.n_layers // stages
     assert [r["flash_launches"] for r in ranks] == [case.n_micro * per] * stages
     assert all(r["backend"] == "nccl" for r in ranks)
+
+
+# ---------------------------------------------------------------------------
+# the kernels as custom ops; the SPMD policy on the card
+# ---------------------------------------------------------------------------
+def _op_case(name, card):
+    """(op, direct kernel call, launch counter, args) at small shapes the
+    kernels take (head width 64, d_state 16)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.mamba_scan import kernel as MK
+    from repro_torch.kernels.rwkv6_scan import kernel as WK
+
+    gen = torch.Generator(device=card).manual_seed(7)
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+
+    if name.startswith("flash"):
+        q, k, v = (rn(2, 192, h, 64, dtype=torch.bfloat16) for h in (4, 2, 2))
+        if name == "flash":
+            return (FK.flash_attention_op, FK.forward_cuda,
+                    FK.flash_attention_call, (q, k, v, True, True))
+        o, lse = FK.forward_cuda(q, k, v, True, True)
+        return (FK.flash_attention_backward_op, FK.backward_cuda,
+                FK.flash_attention_backward_call,
+                (q, k, v, o, torch.randn_like(o), lse, True))
+    if name.startswith("wkv"):
+        r, k, v = (rn(2, 96, 2, 64) for _ in range(3))
+        w = torch.rand((2, 96, 2, 64), generator=gen, device=card) * 0.3 + 0.69
+        u = rn(2, 64)
+        if name == "wkv":
+            return WK.rwkv6_scan_op, WK.forward_cuda, WK.rwkv6_scan_call, (
+                r, k, v, w, u, 64)
+        return (WK.rwkv6_scan_backward_op, WK.backward_cuda,
+                WK.rwkv6_scan_backward_call, (r, k, v, w, u, rn(2, 96, 2, 64), None))
+    dt = torch.rand((2, 96, 64), generator=gen, device=card) * 0.1
+    B, C, x = rn(2, 96, 16), rn(2, 96, 16), rn(2, 96, 64)
+    A, h0 = -torch.rand((64, 16), generator=gen, device=card), rn(2, 64, 16)
+    if name == "scan":
+        return MK.mamba_scan_op, MK.forward_cuda, MK.mamba_scan_call, (
+            dt, B, C, x, A, h0, 64)
+    return (MK.mamba_scan_backward_op, MK.backward_cuda, MK.mamba_scan_backward_call,
+            (dt, B, C, x, A, h0, rn(2, 96, 64), None, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash", "flash_backward", "wkv", "wkv_backward",
+                                  "scan", "scan_backward"])
+def test_custom_op_launches_its_kernel_once_with_the_direct_calls_bits(card, name):
+    """Each ``repro_torch::`` op routes a CUDA tensor to its kernel: one
+    launch (the wrapper's count +1), the same bits as the direct kernel
+    call."""
+    op, direct, counter, args = _op_case(name, card)
+    before = counter.launches
+    got = op(*args)
+    assert counter.launches == before + 1
+    want = direct(*args)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [8.0, 1.25])
+def test_moe_capacity_on_card_matches_cpu(card, capacity_factor):
+    """`layers.moe_capacity` on the card against the same call on the
+    CPU, fp32, 2 groups, 8 experts in 48 banks: the same products in
+    other summation orders (1e-4 of the max; a routing or capacity
+    choice that differed would move outputs by O(1)); no host read."""
+    cfg = dataclasses.replace(smoke_config(load_config("granite_moe_3b_a800m")),
+                              capacity_factor=capacity_factor)
+    p = L.moe_init(torch.Generator().manual_seed(1), cfg, torch.float32, device="cpu")
+    x = torch.randn((4, 32, cfg.d_model), generator=torch.Generator().manual_seed(2))
+    want = L.moe_capacity(p, x, cfg, groups=2)
+    reads = L.moe_dropless.host_reads
+    got = L.moe_capacity({k: v.to(card) for k, v in p.items()}, x.to(card), cfg,
+                         groups=2)
+    assert L.moe_dropless.host_reads == reads
+    assert _rel(got.cpu(), want) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_granite_lowerable_prefill_on_a_one_card_mesh(card):
+    """Smoke Granite-MoE (head width 64 for the kernel), fp32, through
+    `lowerable` on a 1 x 1 mesh of one nccl rank: one flash launch per
+    layer, no MoE host read, and at capacity factor E / top_k its
+    last-token logits equal the NO_POLICY (dropless) prefill's within
+    1e-4 of the max (fp32 products grouped per expert's C rows vs its
+    own rows)."""
+    import sys
+
+    from repro_torch import _build
+    from repro_torch.models import lm
+    from repro_torch.pipeline.executor import launch
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from _torch_spmd_job import prefill_job
+
+    cfg = smoke_config(load_config("granite_moe_3b_a800m"))
+    cfg = dataclasses.replace(cfg, head_dim=64, capacity_factor=cfg.n_experts / cfg.top_k)
+    params = lm.init_params(torch.Generator().manual_seed(3), cfg, torch.float32,
+                            device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 128), generator=torch.Generator().manual_seed(4))
+    _build.build(["flash_attention"])
+    (out,) = launch(prefill_job, 1, backend="nccl", device="cuda", timeout=300.0,
+                    args=(cfg, params, tokens))
+    assert out["flash_launches"] == cfg.n_layers and out["host_reads"] == 0
+    assert out["logits"].shape == (2, cfg.vocab)
+    assert _rel(out["logits"], out["plain"]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_lowerable_train_step_on_four_cards_equals_one_card(card):
+    """One `lowerable` train step of smoke StableLM (head width 64, one
+    KV head, fp32) on a 2 x 2 mesh of four nccl ranks, a card each,
+    against the same step on a 1 x 1 mesh of one card: loss at 1e-5,
+    every parameter at relative L2 1e-4 (sharded products sum in other
+    orders; AdamW's first step divides each gradient element by its own
+    size). Skips on fewer than 4 cards."""
+    import sys
+
+    import numpy as np
+
+    from repro_torch import _build
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.pipeline.executor import launch
+    from repro_torch.tree import flatten
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("a 2 x 2 mesh of nccl ranks needs 4 cards")
+    sys.path.insert(0, os.path.dirname(__file__))
+    from _torch_spmd_job import spmd_job
+
+    cfg = dataclasses.replace(smoke_config(load_config("stablelm_1_6b")),
+                              head_dim=64, n_kv_heads=1)
+    params = lm.init_params(torch.Generator().manual_seed(5), cfg, torch.float32,
+                            device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 64), generator=gen),
+             "labels": torch.randint(0, cfg.vocab, (4, 64), generator=gen),
+             "mask": torch.ones(4, 64)}
+    opt = AdamWConfig(lr_peak=1e-3, warmup_steps=0, total_steps=10)
+    _build.build(["flash_attention", "flash_attention_bwd"])
+    runs = {}
+    for shape, n in (((2, 2), 4), ((1, 1), 1)):
+        ranks = launch(spmd_job, n, backend="nccl", device="cuda", timeout=300.0,
+                       args=([(cfg, params, batch)], opt, shape, "cuda"))
+        runs[shape] = ranks[0][0]
+    four, one = runs[(2, 2)], runs[(1, 1)]
+    assert abs(four["step_loss"] - one["step_loss"]) <= 1e-5 * abs(one["step_loss"])
+    for g, w in zip(flatten(four["params"])[0], flatten(one["params"])[0]):
+        assert np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30) <= 1e-4
