@@ -144,8 +144,8 @@ Phases, each printing what it finds; any failure exits non-zero:
              no other LM kernel; ms per step, tokens/s, card peak memory,
              the last step under the profiler (busy share, top kernels,
              each backward pass's card time per step);
-             a checkpoint resume on the card (smoke Minitron-4B at head
-             width 64, 20 steps + resume to 30 against 30 straight); last,
+             a checkpoint resume on the card (smoke Minitron-4B at its own
+             head width, 16, 20 steps + resume to 30 against 30 straight); last,
              ``train_loop`` on RWKV-6-7B at full width and 8 of its 32
              layers and on Jamba-v0.1-52B at full width and its first
              layer (mamba, dense SwiGLU), 8 steps of 8 x 2048 each
@@ -185,11 +185,32 @@ Phases, each printing what it finds; any failure exits non-zero:
              warm-up and four timed steps (ms, tokens/s, peak memory,
              flash launches, the model FLOP rate from
              ``roofline.analytic_cost`` and its share of 989 TFLOP/s).
-13. report — a ``conformance`` and a ``kernels`` JSON line (seven
+13. examples — flash forward and backward at head widths 16 and 32
+             (bf16 and fp32) against their plain versions at B 8 x 32
+             heads, S 2048, timed beside bound and SDPA; then the five
+             copies of ``examples/*.py`` (``repro_torch.examples``) on the
+             card, each driven as a user runs it (``main`` at its
+             defaults, ``--device cuda``): quickstart (steps 1-4 equal to
+             its CPU run's lines; step 5's live EDF serving, one window
+             launch per window plus the warm-up, both tenants complete
+             jobs), serve_edf (FIFO and EDF live for 2 s each, both
+             tenants complete jobs, one launch per window; jobs, mean,
+             p99 and misses per tenant), serve_gateway (its lines equal
+             its CPU run's, one launch per window), dse_pipeline (steps
+             1-4, then the 4-layer head-width-32 Minitron on 4 gloo stage
+             ranks sharing the card: error 0 against the sequential
+             backbone, 8 flash launches a rank), train_100m (run A: 300
+             steps of 8 x 256, finite losses that fall, 12 forward and 6
+             backward flash launches a step, ms a step; run B: the
+             example as a subprocess killed with SIGKILL once step 100's
+             checkpoint committed, relaunched, resuming there, its logged
+             losses from step 120 on equal to run A's within
+             ``RESUME_RTOL``).
+14. report — a ``conformance`` and a ``kernels`` JSON line (seven
              hand-written kernels; flash attention's launches are the
-             LM phase's Mistral-NeMo run, the pipeline's and the spmd
-             phase's), the card's name and power limit, and the result
-             line.
+             LM phase's Mistral-NeMo run, the pipeline's, the spmd
+             phase's and the examples'), the card's name and power
+             limit, and the result line.
 
 Exits with code 2 and prints no result when no CUDA card is visible.
 """
@@ -200,13 +221,17 @@ import dataclasses
 import functools
 import gc
 import inspect
+import io
 import json
 import math
 import os
+import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -218,6 +243,7 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import _build  # noqa: E402
+from repro_torch.checkpoint.store import latest_step  # noqa: E402
 from repro_torch.configs import load_config, smoke_config  # noqa: E402
 from repro_torch.conformance import (  # noqa: E402
     DEFAULT_SCENARIOS,
@@ -285,6 +311,11 @@ from repro_torch.kernels.rwkv6_scan.ref import (  # noqa: E402
     rwkv6_scan_plain,
 )
 from repro_torch.data import DataConfig, SyntheticTokenDataset  # noqa: E402
+from repro_torch.examples import dse_pipeline as ex_dse  # noqa: E402
+from repro_torch.examples import quickstart as ex_quickstart  # noqa: E402
+from repro_torch.examples import serve_edf as ex_serve_edf  # noqa: E402
+from repro_torch.examples import serve_gateway as ex_gateway  # noqa: E402
+from repro_torch.examples import train_100m as ex_train  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.dryrun import summary as dryrun_summary  # noqa: E402
@@ -2289,8 +2320,8 @@ TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 1, 256
 #: (values ~10, so a few fp32 ulps)
 FLASH_LSE_TOL = 1e-4
 #: resume on the card: the JAX package's own case (tests/test_system.py,
-#: test_training_checkpoint_resume_identical) on smoke Minitron-4B with
-#: its head width set to 64, the kernels' narrowest; its tolerance
+#: test_training_checkpoint_resume_identical) on smoke Minitron-4B at its
+#: own head width, 16; its tolerance
 RESUME_RTOL = 1e-4
 
 
@@ -2747,7 +2778,7 @@ def train_resume() -> dict:
     checkpoint, on the card: the last 10 losses agree at RESUME_RTOL.
     The embedding's backward on the card sums with atomics, so the runs
     need not agree bit for bit."""
-    cfg = dataclasses.replace(smoke_config(load_config("minitron_4b")), head_dim=64)
+    cfg = smoke_config(load_config("minitron_4b"))
     kw = dict(global_batch=4, seq_len=32, log_every=1000, ckpt_every=10,
               schedule_steps=30, device="cuda")
     t0 = time.perf_counter()
@@ -2759,7 +2790,7 @@ def train_resume() -> dict:
     worst = max(_rel(a, b) for a, b in zip(resumed[-10:], full[-10:]))
     check(len(resumed) == 10 and worst <= RESUME_RTOL,
           f"resume: last 10 losses {resumed[-10:]} vs {full[-10:]}")
-    print(f"[train] resume on the card ({cfg.name}, head width 64): 30 steps "
+    print(f"[train] resume on the card ({cfg.name}, head width {cfg.head_dim}): 30 steps "
           f"straight vs 20 + resume to 30, last 10 losses worst rel diff "
           f"{worst:.3g} (<= {RESUME_RTOL}); {time.perf_counter() - t0:.3f} s")
     return {"worst_rel": worst}
@@ -3179,6 +3210,324 @@ def phase_spmd() -> dict:
             "dryrun": recs}
 
 
+# ---------------------------------------------------------------------------
+# the examples: flash at head widths 16 and 32, then the five copies of
+# examples/*.py (repro_torch.examples) on the card
+# ---------------------------------------------------------------------------
+#: the narrow head widths both flash kernels take (the smoke configs' 16,
+#: the DSE pipeline example's 32), timed at B 8 x 32 heads, S 2048
+NARROW_HDS, NARROW_B, NARROW_S, NARROW_H = (16, 32), 8, 2048, 32
+#: train_100m's run B is killed once this step's checkpoint has
+#: committed, relaunched, and held to run A's losses from RESUME_FROM on
+KILL_AFTER_STEP, RESUME_FROM = 100, 120
+
+
+def narrow_flash() -> None:
+    """Flash forward and backward at head widths 16 and 32, bf16 and fp32,
+    against their plain versions (`flash_case`, `bwd_case`), each timed
+    beside its bound and SDPA."""
+    for i, hd in enumerate(NARROW_HDS):
+        for j, dtype in enumerate((torch.bfloat16, torch.float32)):
+            seed = 300 + 10 * i + j
+            for kind, case in (("forward", flash_case), ("backward", bwd_case)):
+                row = case(NARROW_B, NARROW_S, NARROW_H, NARROW_H, hd, dtype, seed)
+                print(f"[examples] flash {kind} hd {hd} {row['dtype']} at B {NARROW_B} x "
+                      f"{NARROW_H} heads, S {NARROW_S}: {row['ms']:.5f} ms (plain "
+                      f"{row['plain_ms']:.5f}, SDPA {row['library_ms']:.5f}, bound "
+                      f"{row['bound_ms']:.5f} by {row['bound_by']}, split floor "
+                      f"{row['split_floor_ms']:.5f}); error {row['tol_ratio']:.3g} x "
+                      f"the limit")
+                torch.cuda.empty_cache()
+
+
+def run_example(tag, fn, *args, echo=True, **kwargs):
+    """``fn(*args, **kwargs)`` with its printed lines captured, then echoed
+    under ``[tag]``; returns (lines, result, host seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    secs = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    if echo:
+        for line in lines:
+            print(f"[{tag}] {line}")
+    return lines, out, secs
+
+
+def before(lines, prefix) -> list[str]:
+    """The lines before the first that starts with ``prefix``, trailing
+    blanks cut."""
+    cut = next((i for i, l in enumerate(lines) if l.startswith(prefix)), len(lines))
+    out = list(lines[:cut])
+    while out and not out[-1].strip():
+        out.pop()
+    return out
+
+
+def card_served(tag, fn, argv):
+    """An example's ``main(argv)`` on the card under a `LaunchTally`: its
+    lines, the servers it built, its window launches (which must be the
+    windows its card servers executed plus their warm-ups) and seconds."""
+    with LaunchTally().counting() as tally:
+        reset_counts()
+        lines, _, secs = run_example(tag, fn, argv)
+        got = counts()
+    launched = got.pop("preemptible_matmul_window")
+    check(not any(got.values()), f"{tag}: only the window kernel launched: {got}")
+    check(launched == tally.card_windows() > 0,
+          f"{tag}: {launched} window launches vs {tally.card_windows()} windows "
+          f"+ warm-ups")
+    return lines, tally.servers, launched, secs
+
+
+def ex_quickstart_run() -> int:
+    """quickstart's ``main`` on the card: steps 1-4 print its CPU run's
+    lines (the search time masked), and step 5's live EDF serving
+    completes jobs of both tenants. Returns its window launches."""
+    lines, servers, launched, secs = card_served("quickstart", ex_quickstart.main, [])
+    cpu, _, _ = run_example("quickstart cpu", ex_quickstart.main, ["--device", "cpu"],
+                            echo=False)
+    mask = functools.partial(re.sub, r"designs in \d+\.\d+s", "designs in <t>s")
+    check([mask(l) for l in before(lines, "live EDF")]
+          == [mask(l) for l in before(cpu, "live EDF")],
+          "quickstart: steps 1-4 print the CPU run's lines")
+    (srv,) = servers
+    rep = srv.report
+    jobs = {t.name: len(rep.response_times[t.name]) for t in srv.tasks}
+    check(all(jobs.values()), f"quickstart: both tenants completed jobs: {jobs}")
+    print(f"[examples] quickstart: steps 1-4 == the CPU run's lines; step 5 "
+          f"{rep.windows_executed} windows + {sum(len(t.weights) for t in srv.tasks)} "
+          f"warm-up = {launched} window launches, jobs {jobs}, misses "
+          f"{dict(rep.deadline_misses)}, {rep.preemptions} preemptions; {secs:.3f} s")
+    return launched
+
+
+def ex_serve_edf_run() -> int:
+    """serve_edf's ``main`` on the card: under each policy both tenants
+    complete jobs; prints jobs, mean, p99 and misses per tenant. Returns
+    its window launches."""
+    _, servers, launched, secs = card_served("serve_edf", ex_serve_edf.main, [])
+    check([s.policy for s in servers] == list(ex_serve_edf.POLICIES),
+          "serve_edf: one server per policy")
+    for srv in servers:
+        rep, per = srv.report, []
+        for name in ("perception", "safety"):
+            r = rep.response_times[name]
+            check(len(r) > 0, f"serve_edf {srv.policy}: {name} completed jobs")
+            per.append(f"{name} jobs {len(r)} mean {1e3 * sum(r) / len(r):.3f} ms p99 "
+                       f"{1e3 * float(torch.tensor(r).quantile(0.99)):.3f} ms misses "
+                       f"{rep.deadline_misses[name]}")
+        print(f"[examples] serve_edf {srv.policy}: {'; '.join(per)}; preemptions "
+              f"{rep.preemptions}, windows {rep.windows_executed}")
+    print(f"[examples] serve_edf: {launched} window launches == windows + warm-ups; "
+          f"{secs:.3f} s; {card_line()}")
+    return launched
+
+
+def ex_gateway_run() -> int:
+    """serve_gateway's ``main`` on the card: its lines equal its CPU run's.
+    Returns its window launches."""
+    lines, servers, launched, secs = card_served("serve_gateway", ex_gateway.main, [])
+    cpu, _, t_cpu = run_example("serve_gateway cpu", ex_gateway.main,
+                                ["--device", "cpu"], echo=False)
+    check(lines == cpu, "serve_gateway: the card's lines equal the CPU run's")
+    print(f"[examples] serve_gateway: {len(lines)} lines == the CPU run's; "
+          f"{len(servers)} servers, {launched} window launches == windows + warm-ups; "
+          f"card {secs:.3f} s, CPU {t_cpu:.3f} s")
+    return launched
+
+
+def ex_dse_run() -> int:
+    """dse_pipeline's steps on the card: a feasible design, then the
+    pipeline on 4 gloo ranks sharing the card with error 0 and one flash
+    launch per microbatch on each rank. Returns the ranks' flash
+    launches."""
+    reset_counts()
+    _, best, t_plan = run_example("dse_pipeline", ex_dse.plan, device="cuda")
+    check(best is not None, "dse_pipeline: a feasible design")
+    case = ex_dse.pipeline_case()
+    _, (err, ranks), t_pipe = run_example("dse_pipeline", ex_dse.run_pipeline, case,
+                                          device="cuda", timeout=PIPELINE_TIMEOUT)
+    check(not any(counts().values()), "dse_pipeline: the parent launched no kernel")
+    check(err == 0.0, f"dse_pipeline: pipelined vs sequential max err {err}")
+    per_rank = case.n_micro * case.cfg.n_layers // ex_dse.STAGES
+    launches = [r["flash_launches"] for r in ranks]
+    check(launches == [per_rank] * ex_dse.STAGES,
+          f"dse_pipeline: flash launches per rank {launches}, want {per_rank} each")
+    check(ranks[0]["ref_flash_launches"] == sum(launches),
+          "dse_pipeline: the sequential run launched as many")
+    print(f"[examples] dse_pipeline: steps 1-4 {t_plan:.3f} s; step 5 max err 0 "
+          f"(bit-identical), flash launches per rank {launches} at head width "
+          f"{case.cfg.head_dim}; {t_pipe:.3f} s")
+    return sum(launches)
+
+
+@contextlib.contextmanager
+def step_marks(module):
+    """(step, host time, loss) at the end of every step of the
+    `train_loop` runs ``module`` makes inside, by wrapping its name."""
+    marks, loop = [], module.train_loop
+
+    def wrapped(*args, **kwargs):
+        def on_step(step, loss):
+            marks.append((step, time.perf_counter(), loss))
+
+        return loop(*args, on_step=on_step, **kwargs)
+
+    module.train_loop = wrapped
+    try:
+        yield marks
+    finally:
+        module.train_loop = loop
+
+
+def train_run_a(root) -> dict:
+    """Run A: ``train_100m.train`` at its defaults in this process, alone on
+    the card (a fresh checkpoint directory under ``root``): 300 finite
+    losses whose last tenth's mean is below the first tenth's, 12 forward
+    and 6 backward flash launches a step, its ms a step."""
+    gc.collect()
+    gc.freeze()  # keep the earlier phases' objects out of the steps' collections
+    torch.cuda.empty_cache()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with step_marks(ex_train) as marks:
+        _, losses, secs = run_example("train_100m", ex_train.train,
+                                      ckpt_dir=os.path.join(root, "a"))
+    got = counts()
+    fwd, bwd = got.pop("flash_attention"), flash_attention_backward_call.launches
+    steps, cfg = len(losses), ex_train.build_100m()
+    check(steps == 300 and all(math.isfinite(x) for x in losses),
+          f"train_100m: {steps} finite losses")
+    k = steps // 10
+    first, last = sum(losses[:k]) / k, sum(losses[-k:]) / k
+    check(last < first, f"train_100m: last tenth's loss {last} >= first's {first}")
+    check(fwd == 2 * cfg.n_layers * steps and bwd == cfg.n_layers * steps,
+          f"train_100m: {fwd} forward / {bwd} backward flash launches over "
+          f"{steps} steps")
+    check(not any(got.values()), f"train_100m: no other kernel launched: {got}")
+    gaps = sorted(b[1] - a[1] for a, b in zip(marks, marks[1:])
+                  if (a[0] + 1) % 50)  # the gaps after a checkpoint left out
+    step_ms = gaps[len(gaps) // 2] * 1e3
+    tokens = 8 * 256
+    print(f"[examples] train_100m run A: {steps} steps, loss {first:.4f} -> "
+          f"{last:.4f}, {fwd // steps} forward and {bwd // steps} backward flash "
+          f"launches a step, median {step_ms:.3f} ms a step ({tokens / step_ms * 1e3:.0f} "
+          f"tokens/s; host clock, checkpoint steps left out), {secs:.3f} s in all "
+          f"with 6 checkpoints, peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+          f"{card_line()}")
+    return {"losses": losses, "forward_launches": fwd, "backward_launches": bwd}
+
+
+class KilledRun:
+    """Run B: ``python -m repro_torch.examples.train_100m`` as a user runs
+    it, in the background. A watcher thread kills it with SIGKILL once
+    step KILL_AFTER_STEP's checkpoint has committed; `relaunch` starts it
+    again on the same directory; `finish` holds the relaunch, which must
+    resume at that step, to run A's losses from RESUME_FROM on. Its
+    processes run beside other work of the phase, whose results do not
+    depend on time (each is checked for exact results)."""
+
+    def __init__(self, root):
+        self.root, self.ckpt = root, os.path.join(root, "b")
+        self.env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+        self.t0 = time.perf_counter()
+        self.procs, self.error, self.killed_at = [], None, None
+        self._start("b1.log")
+        self.watcher = threading.Thread(target=self._watch, daemon=True)
+        self.watcher.start()
+
+    def _start(self, name):
+        with open(os.path.join(self.root, name), "w") as log:
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.examples.train_100m",
+                 "--ckpt-dir", self.ckpt],
+                cwd=ROOT, env=self.env, stdout=log, stderr=subprocess.STDOUT))
+
+    def _log(self, name) -> str:
+        with open(os.path.join(self.root, name)) as f:
+            return f.read()
+
+    def _watch(self):
+        proc = self.procs[0]
+        while (latest_step(self.ckpt) or 0) < KILL_AFTER_STEP:
+            if proc.poll() is not None:
+                self.error = f"exited ({proc.returncode}) before the checkpoint"
+                return
+            time.sleep(0.02)
+        proc.send_signal(signal.SIGKILL)
+        self.killed_at = time.perf_counter() - self.t0
+
+    def relaunch(self) -> None:
+        self.watcher.join()
+        self.procs[0].wait()
+        check(self.error is None, f"train_100m run B {self.error}: "
+              f"{self._log('b1.log')[-3000:]}")
+        self._start("b2.log")
+
+    def finish(self, losses) -> None:
+        rc = self.procs[1].wait(timeout=600)
+        out = self._log("b2.log")
+        check(rc == 0, f"train_100m relaunch exited {rc}: {out[-3000:]}")
+        check(f"[train] resumed from step {KILL_AFTER_STEP}" in out,
+              f"train_100m relaunch resumed from step {KILL_AFTER_STEP}: {out[:500]}")
+        logged = {s: x for s, x in logged_losses(out).items() if s >= RESUME_FROM}
+        check(len(logged) >= 9, f"train_100m relaunch logged {sorted(logged)}")
+        worst = max(_rel(x, losses[s]) for s, x in logged.items())
+        check(worst <= RESUME_RTOL, f"train_100m relaunch: losses {logged} vs run A's "
+              f"{ {s: losses[s] for s in logged} }")
+        secs = time.perf_counter() - self.t0
+        print(f"[examples] train_100m run B: SIGKILL {self.killed_at:.3f} s in, once "
+              f"step {KILL_AFTER_STEP}'s checkpoint committed; the relaunch resumed there "
+              f"and its {len(logged)} logged losses from step {RESUME_FROM} on match run "
+              f"A's (worst rel diff {worst:.3g} <= {RESUME_RTOL}, 4 decimals as logged); "
+              f"{secs:.3f} s, beside the gateway and DSE runs")
+
+    def close(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+def logged_losses(text) -> dict[int, float]:
+    return {int(m.group(1)): float(m.group(2))
+            for m in re.finditer(r"^\[train\] step\s+(\d+) loss\s+(\S+)", text, re.M)}
+
+
+def phase_examples() -> dict:
+    """Flash at the narrow head widths, then each example's main path on
+    the card, each with its counts set to 0 just before it: the wall-clock
+    ones (quickstart, serve_edf) and train_100m's run A alone on the card;
+    train_100m's run B, in its own processes, beside serve_gateway and
+    dse_pipeline, whose results do not depend on time. Returns each
+    kernel's launches in the examples."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    narrow_flash()
+    t_narrow = time.perf_counter() - t0
+    windows = ex_quickstart_run() + ex_serve_edf_run()
+    root = tempfile.mkdtemp(prefix="train_100m-")
+    killed = None
+    try:
+        run_a = train_run_a(root)
+        killed = KilledRun(root)
+        windows += ex_gateway_run()
+        killed.relaunch()
+        flash = ex_dse_run() + run_a["forward_launches"]
+        killed.finish(run_a["losses"])
+    finally:
+        if killed is not None:
+            killed.close()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[examples] phase: {time.perf_counter() - t0:.3f} s (narrow flash "
+          f"{t_narrow:.3f} s)")
+    return {"window_launches": windows, "flash_launches": flash,
+            "backward_launches": run_a["backward_launches"]}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3244,15 +3593,18 @@ def main() -> int:
     bwd_row, train = phase_train()
     pipeline = phase_pipeline()
     spmd = phase_spmd()
+    examples = phase_examples()
+    ex_windows = examples["window_launches"]
     pmm = kernel_entry(
         "preemptible_matmul_window", "src/repro_torch/csrc/preemptible_matmul.cu",
         "src/repro/kernels/preemptible_matmul/kernel.py:36", "mma.sync",
-        launches + gateway["launches"] + sharded + conf["launches"],
+        launches + gateway["launches"] + sharded + conf["launches"] + ex_windows,
         dict(head, max_abs_err=max(
             r["max_abs_err"] for r in rows if r["dtype"] == "float32")),
     )
     pmm.update(launches_by_path={"serve": launches, "gateway": gateway["launches"],
-                                 "sharded": sharded, "conformance": conf["launches"]},
+                                 "sharded": sharded, "conformance": conf["launches"],
+                                 "examples": ex_windows},
                launch_ms=head["launch_ms"],
                fp32_fma_bound_ms=head["fp32_fma_bound_ms"],
                shape={k: head[k] for k in ("M", "K", "N", "window", "dtype")})
@@ -3260,11 +3612,13 @@ def main() -> int:
         "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:32", "wgmma",
         lm_runs["mistral_nemo_12b"]["launches"]["flash_attention"]
-        + pipeline["launches"] + spmd["launches"], flash_row,
+        + pipeline["launches"] + spmd["launches"] + examples["flash_launches"],
+        flash_row,
     )
     flash.update(launches_by_path={
                      "lm": lm_runs["mistral_nemo_12b"]["launches"]["flash_attention"],
-                     "pipeline": pipeline["launches"], "spmd": spmd["launches"]},
+                     "pipeline": pipeline["launches"], "spmd": spmd["launches"],
+                     "examples": examples["flash_launches"]},
                  split_floor_ms=flash_row["split_floor_ms"],
                  shape={k: flash_row[k] for k in ("B", "S", "H", "Hkv", "hd", "dtype")})
     wkv = kernel_entry(
@@ -3282,12 +3636,13 @@ def main() -> int:
     bwd = kernel_entry(
         "flash_attention_backward", "src/repro_torch/csrc/flash_attention_bwd.cu",
         "src/repro/models/layers.py:140", "wgmma",
-        train["launches"]["flash_attention_backward"] + spmd["backward_launches"],
-        bwd_row,
+        train["launches"]["flash_attention_backward"] + spmd["backward_launches"]
+        + examples["backward_launches"], bwd_row,
     )
     bwd.update(launches_by_path={
                    "train": train["launches"]["flash_attention_backward"],
-                   "spmd": spmd["backward_launches"]},
+                   "spmd": spmd["backward_launches"],
+                   "examples": examples["backward_launches"]},
                split_floor_ms=bwd_row["split_floor_ms"],
                shape={k: bwd_row[k] for k in ("B", "S", "H", "Hkv", "hd", "dtype")})
     rwkv_train = train["recurrent"]["rwkv6_7b"]["launches"]

@@ -29,12 +29,14 @@
 // guarded by a "full" and an "empty" mbarrier. TMA reads 4-D tensor maps
 // over (hd, heads, S, B), so rows past S come back as zeros and a ragged
 // tile never reads the next batch's rows. Tiles land 128-byte swizzled,
-// split into 64-column chunks, which is the layout wgmma reads:
+// split into 64-column chunks, which is the layout wgmma reads; a head
+// of 16 or 32 lands in one chunk, zero past hd (hopper.cuh `tile_width`):
 // - S = Q K^T: Q and K from shared memory, both K-major; the bf16 inputs
 //   are exact and the sums fp32 (m64n64k16, hd / 16 steps).
 // - O += P V: P from registers as the A operand, V from shared memory as
 //   an MN-major B operand (wgmma's transposed-B form), so V's natural
-//   (keys, hd) layout serves without a transpose (m64n{hd}k16).
+//   (keys, hd) layout serves without a transpose (m64n{hd}k16, n64 at
+//   hd 16 and 32 over the zero columns).
 // Scores and probabilities never leave registers; the max, the
 // exponentials, l and the rescale stay fp32 there.
 //
@@ -77,11 +79,18 @@ constexpr int kBlockQ = 64;    // query rows per CUDA block
 constexpr int kBlockK = 64;    // key rows per shared-memory tile
 constexpr int kThreads = 256;  // 16 x 16: 4 rows x (hd/16 or 4) cols each
 
+// row stride of the K tile, which the probabilities [64][65] overwrite:
+// wide enough for either
+template <int HD>
+__host__ __device__ constexpr int k_stride() {
+  return HD + 1 > kBlockK + 1 ? HD + 1 : kBlockK + 1;
+}
+
 template <int HD>
 constexpr size_t smem_bytes() {
-  // q [64][HD+4] + k [64][HD+1] (later p [64][65]) + v [64][HD]
+  // q [64][HD+4] + k [64][k_stride] (later p [64][65]) + v [64][HD]
   return sizeof(float) *
-         (kBlockQ * (HD + 4) + kBlockK * (HD + 1) + kBlockK * HD);
+         (kBlockQ * (HD + 4) + kBlockK * k_stride<HD>() + kBlockK * HD);
 }
 
 // One block per (b*h, 64-row q block): its q tile lives in shared memory;
@@ -97,10 +106,10 @@ __global__ void __launch_bounds__(kThreads)
               const float* __restrict__ v, float* __restrict__ o,
               float* __restrict__ lse, int S, int H, int Hkv, float scale,
               int causal) {
-  static_assert(HD % 16 == 0 && kBlockK + 1 <= HD + 1, "head width");
+  static_assert(HD % 16 == 0, "head width");
   constexpr int kQs = HD + 4;  // q row stride: the two rows a warp reads
                                // in one step fall in different banks
-  constexpr int kKs = HD + 1;  // k row stride: 16 rows, 16 banks
+  constexpr int kKs = k_stride<HD>();  // odd: 16 rows, 16 banks
   constexpr int kPs = kBlockK + 1;
   constexpr int kCols = HD / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
@@ -275,11 +284,13 @@ constexpr int kProducerWarp = 4 * kConsumers;  // the warp after the consumers
 constexpr int kThreads = 32 * (kProducerWarp + 1);
 
 // Shared memory, from a 1024-byte aligned base. Every tile is stored as
-// [hd / 64 chunks][rows][64] bf16, each row 128 bytes, 128-byte swizzled
-// by TMA; then the mbarriers: q, full[kStages], empty[kStages].
+// [tile_width / 64 chunks][rows][64] bf16, each row 128 bytes, 128-byte
+// swizzled by TMA (hd 16 and 32 zero-filled to 64 columns); then the
+// mbarriers: q, full[kStages], empty[kStages].
 template <int HD>
 struct Layout {
-  static constexpr int kChunks = HD / 64;
+  static constexpr int kWidth = tile_width(HD);
+  static constexpr int kChunks = kWidth / 64;
   static constexpr uint32_t q_chunk = kBlockQ * kRow;
   static constexpr uint32_t kv_chunk = kBlockK * kRow;
   static constexpr uint32_t q_bytes = kChunks * q_chunk;
@@ -374,9 +385,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       causal ? min(n_kb_all, (wg_q0 + kRowsWg - 1) / kBlockK + 1) : n_kb_all;
   const uint32_t q_wg = q_s + wg * kRowsWg * kRow;
 
-  float acc[HD / 2];
+  // m64n{width} accumulator: columns past hd stay 0 and are not stored
+  float acc[Ly::kWidth / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < Ly::kWidth / 2; ++i) acc[i] = 0.0f;
   float m[2] = {kNegInf, kNegInf};  // running row max, in log2 units
   float l[2] = {0.0f, 0.0f};        // this thread's share of the row sums
 
@@ -449,7 +461,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + sum[i];
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
+    for (int j = 0; j < Ly::kWidth / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         acc[4 * j + 2 * i] *= alpha[i];
@@ -530,7 +542,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 }  // namespace
 
 // Plain C interface for ctypes. q, o: (B, S, H, hd); k, v: (B, S, Hkv, hd);
-// all contiguous, one type; hd 64 or 128; H a multiple of Hkv; B*H and
+// all contiguous, one type; hd 16, 32, 64 or 128; H a multiple of Hkv; B*H and
 // ceil(S/64) within the grid's limits; bf16 operands 16-byte aligned. lse
 // is null, or a contiguous fp32 (B, H, S) buffer that receives each row's
 // log-sum-exp of the scaled scores in base 2, log2 sum_j 2^(s_j log2(e) /
@@ -542,6 +554,10 @@ extern "C" int fa_forward_f32(const void* q, const void* k, const void* v,
                               int hd, int causal, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 16:
+      return simt::launch<16>(q, k, v, o, lse, B, S, H, Hkv, causal, st);
+    case 32:
+      return simt::launch<32>(q, k, v, o, lse, B, S, H, Hkv, causal, st);
     case 64:
       return simt::launch<64>(q, k, v, o, lse, B, S, H, Hkv, causal, st);
     case 128:
@@ -556,6 +572,10 @@ extern "C" int fa_forward_bf16(const void* q, const void* k, const void* v,
                                int hd, int causal, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 16:
+      return tc::launch<16>(q, k, v, o, lse, B, S, H, Hkv, causal, st);
+    case 32:
+      return tc::launch<32>(q, k, v, o, lse, B, S, H, Hkv, causal, st);
     case 64:
       return tc::launch<64>(q, k, v, o, lse, B, S, H, Hkv, causal, st);
     case 128:

@@ -30,7 +30,8 @@
 //
 // bf16 (`fa_backward_bf16`, every LM train step on the card) runs all
 // five products on the tensor cores with wgmma (m64nNk16, fp32
-// accumulators), built as the forward's bf16 kernel: two consumer
+// accumulators, N 64 at hd 16 and 32: hopper.cuh `tile_width`), built as
+// the forward's bf16 kernel: two consumer
 // warpgroups of 64 resident rows each and one producer warp that keeps a
 // ring of tiles filled by TMA from the forward's 4-D tensor maps
 // (128-byte swizzled, rows past S read as zeros), each stage guarded by a
@@ -469,7 +470,8 @@ __device__ __forceinline__ void split(const float (&x)[N / 2],
 }
 
 // dK/dV pass shared memory, from a 1024-byte aligned base. Tiles are
-// stored as [hd / 64 chunks][rows][64] bf16, 128-byte swizzled by TMA: K,
+// stored as [tile_width / 64 chunks][rows][64] bf16, 128-byte swizzled by
+// TMA (hd 16 and 32 zero-filled to 64 columns, hopper.cuh): K,
 // V (128 rows each), then per stage a Q and a dO tile (64 queries each);
 // then per stage the tile's lse and D (64 fp32 each); then the mbarriers:
 // kv, full[kStages], empty[kStages].
@@ -477,7 +479,8 @@ template <int HD>
 struct KvLayout {
   static constexpr int kNq = 64;
   static constexpr int kStages = 4;
-  static constexpr int kChunks = HD / 64;
+  static constexpr int kWidth = tile_width(HD);
+  static constexpr int kChunks = kWidth / 64;
   static constexpr uint32_t kv_chunk = kBlockRows * kRow;
   static constexpr uint32_t kv_bytes = kChunks * kv_chunk;  // K or V
   static constexpr uint32_t q_chunk = kNq * kRow;
@@ -597,9 +600,10 @@ __global__ void __launch_bounds__(kKvThreads, 1)
   const uint32_t k_wg = k_s + wg * kRowsWg * kRow;
   const uint32_t v_wg = v_s + wg * kRowsWg * kRow;
 
-  float acc_dk[HD / 2], acc_dv[HD / 2];
+  // m64n{width} accumulators: columns past hd stay 0 and are not stored
+  float acc_dk[Ly::kWidth / 2], acc_dv[Ly::kWidth / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc_dk[i] = acc_dv[i] = 0.0f;
+  for (int i = 0; i < Ly::kWidth / 2; ++i) acc_dk[i] = acc_dv[i] = 0.0f;
 
   mbar_wait(bar_kv, 0);
   int it = 0;
@@ -719,7 +723,8 @@ template <int HD>
 struct QLayout {
   static constexpr int kBlockK = 64;
   static constexpr int kStages = 3;
-  static constexpr int kChunks = HD / 64;
+  static constexpr int kWidth = tile_width(HD);
+  static constexpr int kChunks = kWidth / 64;
   static constexpr uint32_t q_chunk = kBlockRows * kRow;
   static constexpr uint32_t q_bytes = kChunks * q_chunk;    // Q or dO
   static constexpr uint32_t kv_chunk = kBlockK * kRow;
@@ -822,9 +827,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     row_lse[i] = row < S ? lse[static_cast<size_t>(bh) * S + row] : 0.0f;
     row_d[i] = row < S ? delta[static_cast<size_t>(bh) * S + row] : 0.0f;
   }
-  float acc[HD / 2];
+  float acc[Ly::kWidth / 2];  // columns past hd stay 0 and are not stored
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < Ly::kWidth / 2; ++i) acc[i] = 0.0f;
 
   mbar_wait(bar_q, 0);
   for (int kb = 0; kb < n_kb_wg; ++kb) {
@@ -963,19 +968,22 @@ using Launch = int (*)(const void*, const void*, const void*, const void*,
                        const void*, const void*, void*, void*, void*, void*, int,
                        int, int, int, int, cudaStream_t);
 
-int dispatch(Launch at64, Launch at128, const void* q, const void* k,
+// one launcher per head width: 16, 32, 64, 128
+int dispatch(const Launch (&at)[4], const void* q, const void* k,
              const void* v, const void* o, const void* dout, const void* lse,
              void* dq, void* dk, void* dv, void* delta, int B, int S, int H,
              int Hkv, int hd, int causal, void* stream) {
-  const auto st = static_cast<cudaStream_t>(stream);
+  int i;
   switch (hd) {
-    case 64:
-      return at64(q, k, v, o, dout, lse, dq, dk, dv, delta, B, S, H, Hkv, causal, st);
-    case 128:
-      return at128(q, k, v, o, dout, lse, dq, dk, dv, delta, B, S, H, Hkv, causal, st);
+    case 16: i = 0; break;
+    case 32: i = 1; break;
+    case 64: i = 2; break;
+    case 128: i = 3; break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  return at[i](q, k, v, o, dout, lse, dq, dk, dv, delta, B, S, H, Hkv, causal,
+               static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -983,7 +991,7 @@ int dispatch(Launch at64, Launch at128, const void* q, const void* k,
 // Plain C interface for ctypes. q, o, dout, dq: (B, S, H, hd); k, v, dk,
 // dv: (B, S, Hkv, hd); all contiguous, one type, 16-byte aligned; lse: the
 // forward's fp32 (B, H, S) log-sum-exp in base 2; delta: an fp32 (B, H, S)
-// workspace; hd 64 or 128; H a multiple of Hkv; B*H and ceil(S/64) within
+// workspace; hd 16, 32, 64 or 128; H a multiple of Hkv; B*H and ceil(S/64) within
 // the grid's limits. The Python wrapper checks all of it. Launches the
 // three passes on ``stream`` and returns cudaGetLastError() after them, or
 // the first error that kept a pass from launching.
@@ -992,8 +1000,10 @@ extern "C" int fa_backward_f32(const void* q, const void* k, const void* v,
                                void* dq, void* dk, void* dv, void* delta, int B,
                                int S, int H, int Hkv, int hd, int causal,
                                void* stream) {
-  return dispatch(simt::launch<64>, simt::launch<128>, q, k, v, o, dout, lse,
-                  dq, dk, dv, delta, B, S, H, Hkv, hd, causal, stream);
+  static const Launch at[4] = {simt::launch<16>, simt::launch<32>,
+                               simt::launch<64>, simt::launch<128>};
+  return dispatch(at, q, k, v, o, dout, lse, dq, dk, dv, delta, B, S, H, Hkv,
+                  hd, causal, stream);
 }
 
 extern "C" int fa_backward_bf16(const void* q, const void* k, const void* v,
@@ -1001,6 +1011,8 @@ extern "C" int fa_backward_bf16(const void* q, const void* k, const void* v,
                                 void* dq, void* dk, void* dv, void* delta, int B,
                                 int S, int H, int Hkv, int hd, int causal,
                                 void* stream) {
-  return dispatch(tc::launch<64>, tc::launch<128>, q, k, v, o, dout, lse, dq,
-                  dk, dv, delta, B, S, H, Hkv, hd, causal, stream);
+  static const Launch at[4] = {tc::launch<16>, tc::launch<32>, tc::launch<64>,
+                               tc::launch<128>};
+  return dispatch(at, q, k, v, o, dout, lse, dq, dk, dv, delta, B, S, H, Hkv,
+                  hd, causal, stream);
 }

@@ -18,6 +18,14 @@ namespace hopper {
 constexpr uint32_t kRow = 128;   // bytes of one swizzled row: 64 bf16
 constexpr uint32_t kAtom = 1024; // swizzle atom: 8 rows
 
+// Columns a bf16 tile of head width hd takes in shared memory: 64-column
+// chunks of 128-byte rows. A head of 16 or 32 fills one chunk, whose
+// columns past hd TMA writes as zeros (`make_map`), so the swizzle, the
+// boxes and the wgmma descriptors are those of hd 64: a product that sums
+// over hd takes hd / 16 k-steps and skips the zeros, one whose N is hd
+// runs at N 64 over them and stores hd columns.
+__host__ __device__ constexpr int tile_width(int hd) { return hd < 64 ? 64 : hd; }
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -232,7 +240,8 @@ inline EncodeTiled encoder() {
 
 // A (B, S, heads, hd) bf16 tensor as a 4-D map over (hd, heads, S, B);
 // one box is 64 columns of one head at `rows` positions of one batch row,
-// 128-byte swizzled. Out-of-range positions read as zeros.
+// 128-byte swizzled. Out-of-range positions read as zeros, and so do the
+// columns past hd when hd is below 64 (`tile_width`).
 inline bool make_map(CUtensorMap* map, const void* ptr, int B, int S,
                      int heads, int hd, int rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),

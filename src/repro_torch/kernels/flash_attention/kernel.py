@@ -45,7 +45,7 @@ _SYMBOLS = {torch.float32: "fa_forward_f32", torch.bfloat16: "fa_forward_bf16"}
 _BWD_SYMBOLS = {torch.float32: "fa_backward_f32",
                 torch.bfloat16: "fa_backward_bf16"}
 #: head widths the CUDA kernel is compiled for
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 _BLOCK_Q = 64
 _GRID_Y_MAX = 65535
 _INT32_MAX = 2**31 - 1
@@ -107,7 +107,7 @@ def _check(q, k, v) -> None:
 
 def _check_cuda(tensors) -> None:
     """What the CUDA kernels take beyond `_check`: contiguous operands,
-    head width 64 or 128, a grid within the card's limits."""
+    head width in `HEAD_DIMS`, a grid within the card's limits."""
     q = tensors[0]
     B, S, H, hd = q.shape
     if hd not in HEAD_DIMS:
@@ -205,7 +205,7 @@ def flash_attention_call(q, k, v, *, causal: bool = True,
     each row's log-sum-exp of the scaled scores in base 2 (what
     `flash_attention_backward_call` takes). ``out`` is the same bits
     either way. On CUDA the tensors must be contiguous (bf16 ones also
-    16-byte aligned) and hd 64 or 128; the kernel runs on the current
+    16-byte aligned) and hd 16, 32, 64 or 128; the kernel runs on the current
     stream and each launch adds one to ``flash_attention_call.launches``.
     CPU tensors take the plain version and count nothing. The call goes
     through the ``repro_torch::flash_attention`` op.
@@ -302,7 +302,7 @@ def flash_attention_backward_call(q, k, v, o, do, lse, *, causal: bool = True):
     log-sum-exp, from which P is rebuilt. Returns dq like q and dk, dv
     like k, in q's dtype; dk and dv of a KV head sum over its group's
     query heads. On CUDA every tensor must be contiguous, q, k, v, o and
-    do 16-byte aligned, and hd 64 or 128; the kernels run on the current
+    do 16-byte aligned, and hd 16, 32, 64 or 128; the kernels run on the current
     stream, write each gradient element once (no atomics, so results are
     bit-identical from launch to launch), and a call adds one to
     ``flash_attention_backward_call.launches``. CPU tensors take the

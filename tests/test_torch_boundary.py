@@ -40,6 +40,9 @@ _IMPORT_EVERYTHING = textwrap.dedent(
     names = ["repro_torch"] + [
         m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
     ]
+    examples = {f"repro_torch.examples.{n}" for n in (
+        "quickstart", "serve_edf", "serve_gateway", "dse_pipeline", "train_100m")}
+    assert examples <= set(names), sorted(examples - set(names))
     for name in names:
         importlib.import_module(name)
     bad = sorted(

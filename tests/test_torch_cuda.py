@@ -218,7 +218,10 @@ def _qkv(card, B, S, H, Hkv, hd, dtype, seed):
     [(2, 256, 32, 8, 128, True), (1, 1000, 4, 4, 64, True),
      (2, 77, 8, 1, 128, True), (1, 200, 4, 2, 64, False),
      (2, 1000, 8, 2, 64, True), (2, 1000, 8, 2, 128, False),
-     (2, 77, 4, 2, 64, False)],
+     (2, 77, 4, 2, 64, False),
+     # the narrow widths; S 32 is shorter than one query block
+     (8, 32, 4, 4, 16, True), (2, 77, 8, 2, 32, True), (1, 200, 4, 1, 16, False),
+     (2, 1000, 4, 2, 32, True)],
 )
 def test_flash_kernel_matches_plain(card, dtype, B, S, H, Hkv, hd, causal):
     q, k, v = _qkv(card, B, S, H, Hkv, hd, dtype, S + H)
@@ -287,7 +290,9 @@ def test_flash_kernel_refuses_other_head_widths(card):
     "B,S,H,Hkv,hd,causal",
     [(2, 256, 32, 8, 128, True), (1, 1000, 4, 4, 64, True),
      (2, 77, 8, 1, 128, True), (1, 200, 4, 2, 64, False),
-     (2, 130, 8, 2, 64, True), (1, 77, 4, 2, 128, False)],
+     (2, 130, 8, 2, 64, True), (1, 77, 4, 2, 128, False),
+     (8, 32, 4, 4, 16, True), (2, 77, 8, 2, 32, True), (1, 200, 4, 1, 16, False),
+     (2, 1000, 4, 2, 32, True)],
 )
 def test_flash_backward_kernel_matches_plain(card, dtype, B, S, H, Hkv, hd, causal):
     """dq, dk, dv against the plain gradient formulas, from the forward
@@ -359,7 +364,8 @@ LSE_TOL = 1e-4
 @pytest.mark.parametrize(
     "B,S,H,Hkv,hd,causal",
     [(2, 256, 32, 8, 128, True), (2, 77, 8, 1, 128, True),
-     (1, 1000, 4, 4, 64, True), (1, 200, 4, 2, 64, False)],
+     (1, 1000, 4, 4, 64, True), (1, 200, 4, 2, 64, False),
+     (8, 32, 4, 4, 32, True), (2, 77, 8, 2, 16, True)],
 )
 def test_flash_forward_lse_matches_plain(card, dtype, B, S, H, Hkv, hd, causal):
     """The forward kernel's log-sum-exp (base 2) against the plain
@@ -377,7 +383,7 @@ def test_flash_forward_lse_matches_plain(card, dtype, B, S, H, Hkv, hd, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 def test_flash_forward_output_is_the_same_bits_with_and_without_lse(card, hd):
     """Serving runs the forward with no lse buffer, training with one:
     the output must not depend on it, at a prompt length of the LM path."""
@@ -407,9 +413,10 @@ def test_flash_backward_at_nemo_length_and_gqa_is_within_bound_and_deterministic
 
 
 @pytest.mark.cuda
-def test_smoke_train_step_on_card_matches_cpu(card):
-    """One AdamW step of smoke StableLM in fp32, head width 64 (the
-    kernels' width), on the card and on the CPU from the same weights and
+@pytest.mark.parametrize("hd", [16, 64])
+def test_smoke_train_step_on_card_matches_cpu(card, hd):
+    """One AdamW step of smoke StableLM in fp32, at the smoke config's own
+    head width (16) and at 64, on the card and on the CPU from the same weights and
     batch: loss, grad norm and every parameter within 1e-4 (relative L2
     for the parameters), through one forward launch per layer, one more
     under remat and one backward launch per layer."""
@@ -418,7 +425,7 @@ def test_smoke_train_step_on_card_matches_cpu(card):
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.tree import flatten, tree_map
 
-    cfg = dataclasses.replace(smoke_config(load_config("stablelm_1_6b")), head_dim=64)
+    cfg = dataclasses.replace(smoke_config(load_config("stablelm_1_6b")), head_dim=hd)
     params = lm.init_params(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
     gen = torch.Generator().manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab, (2, 96), generator=gen),

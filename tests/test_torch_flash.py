@@ -70,14 +70,15 @@ def _qkv(B, S, H, Hkv, hd, dtype, seed=0):
     return q, k, v
 
 
+@pytest.mark.parametrize("hd", [16, 32])  # the CUDA kernels' narrow widths
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
     "S,H,Hkv", [(72, 4, 4), (100, 8, 2), (120, 4, 1), (64, 4, 2)]
 )
-def test_plain_matches_pallas_kernel_and_oracle(dtype, S, H, Hkv):
-    (jq, tq), (jk, tk), (jv, tv) = _qkv(2, S, H, Hkv, 32, dtype, seed=S + H)
+def test_plain_matches_pallas_kernel_and_oracle(dtype, S, H, Hkv, hd):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(2, S, H, Hkv, hd, dtype, seed=S + H)
     got = flash_attention(tq, tk, tv)
-    assert got.shape == (2, S, H, 32)
+    assert got.shape == (2, S, H, hd)
     assert tol_ratio(got, _as_torch(ref_flash(jq, jk, jv), dtype)) <= 1.0
     assert tol_ratio(got, _as_torch(attention_ref(jq, jk, jv), dtype)) <= 1.0
 
@@ -200,20 +201,21 @@ def test_cpu_wrapper_counts_nothing_and_checks_shapes():
 LSE_TOL = 1e-5
 
 
+@pytest.mark.parametrize("hd", [16, 32])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,H,Hkv", [(72, 4, 4), (100, 8, 2)])
-def test_plain_lse_matches_jax_logsumexp(dtype, causal, S, H, Hkv):
+def test_plain_lse_matches_jax_logsumexp(dtype, causal, S, H, Hkv, hd):
     """The lse the CPU path of `flash_attention_call` returns is
     ``jax.nn.logsumexp`` of the JAX reference's scaled, masked scores
     (``attention_ref``'s), in base 2; its output is the same bits as
     without lse."""
-    (jq, tq), (jk, tk), (jv, tv) = _qkv(2, S, H, Hkv, 32, dtype, seed=S + 7)
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(2, S, H, Hkv, hd, dtype, seed=S + 7)
     got_o, got = flash_attention_call(tq, tk, tv, causal=causal, return_lse=True)
     assert got.dtype == torch.float32 and got.shape == (2, H, S)
     assert torch.equal(got_o, flash_attention_call(tq, tk, tv, causal=causal))
     kx = jnp.repeat(jk, H // Hkv, axis=2).astype(jnp.float32)
-    s = jnp.einsum("bqhd,bshd->bhqs", jq.astype(jnp.float32), kx) * (32**-0.5)
+    s = jnp.einsum("bqhd,bshd->bhqs", jq.astype(jnp.float32), kx) * (hd**-0.5)
     if causal:
         s = jnp.where(jnp.tril(jnp.ones((S, S), bool))[None, None], s, NEG_INF)
     want = np.asarray(jax.nn.logsumexp(s, axis=-1)) * LOG2E
@@ -353,3 +355,4 @@ def test_backward_split_meets_the_bound_and_single_bf16_p_or_ds_does_not():
     assert ratios("bf16", "hi_lo")[2] > 1.0  # dv
     dq_r, dk_r, _ = ratios("hi_lo", "bf16")
     assert dq_r > 1.0 and dk_r > 1.0
+

@@ -127,7 +127,8 @@ def test_collective_counter_counts_every_loop_trip():
 # ---------------------------------------------------------------------------
 def _op_cases():
     """(name, op, public call, plain version, args) of the six ops at small
-    CPU shapes, inputs from a seed."""
+    CPU shapes, inputs from a seed; the flash ops also at head widths 16
+    and 32."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import ref as FR
     from repro_torch.kernels.mamba_scan import kernel as MK
@@ -137,23 +138,30 @@ def _op_cases():
 
     g = torch.Generator().manual_seed(0)
     rn = lambda *s: torch.randn(s, generator=g)  # noqa: E731
-    q, k, v = rn(2, 12, 4, 8), rn(2, 12, 2, 8), rn(2, 12, 2, 8)
-    o, lse = FR.attention_plain(q, k, v, return_lse=True)
-    do = rn(2, 12, 4, 8)
     r, kk, vv, dy = (rn(2, 12, 2, 8) for _ in range(4))
     w = torch.rand((2, 12, 2, 8), generator=g) * 0.3 + 0.69
     u = rn(2, 8)
     dt = torch.rand((2, 12, 6), generator=g) * 0.1
     B, C, x, dys = rn(2, 12, 4), rn(2, 12, 4), rn(2, 12, 6), rn(2, 12, 6)
     A, h0 = -torch.rand((6, 4), generator=g), rn(2, 6, 4)
+    flash = []
+    for hd in (8, 16, 32):  # 16 and 32: the narrow widths the kernels take
+        fq, fk, fv, fdo = rn(2, 12, 4, hd), rn(2, 12, 2, hd), rn(2, 12, 2, hd), rn(2, 12, 4, hd)
+        fo, flse = FR.attention_plain(fq, fk, fv, return_lse=True)
+        tag = "" if hd == 8 else f"_hd{hd}"
+        flash += [
+            (f"flash{tag}", FK.flash_attention_op,
+             lambda fq=fq, fk=fk, fv=fv: FK.flash_attention_call(
+                 fq, fk, fv, return_lse=True),
+             lambda fq=fq, fk=fk, fv=fv: FR.attention_plain(
+                 fq, fk, fv, return_lse=True), (fq, fk, fv, True, True)),
+            (f"flash_backward{tag}", FK.flash_attention_backward_op,
+             lambda a=(fq, fk, fv, fo, fdo, flse): FK.flash_attention_backward_call(*a),
+             lambda a=(fq, fk, fv, fo, fdo, flse): FR.attention_backward_plain(*a),
+             (fq, fk, fv, fo, fdo, flse, True)),
+        ]
     return [
-        ("flash", FK.flash_attention_op, lambda: FK.flash_attention_call(
-            q, k, v, return_lse=True), lambda: FR.attention_plain(
-            q, k, v, return_lse=True), (q, k, v, True, True)),
-        ("flash_backward", FK.flash_attention_backward_op,
-         lambda: FK.flash_attention_backward_call(q, k, v, o, do, lse),
-         lambda: FR.attention_backward_plain(q, k, v, o, do, lse),
-         (q, k, v, o, do, lse, True)),
+        *flash,
         ("wkv", WK.rwkv6_scan_op, lambda: WK.rwkv6_scan_call(
             r, kk, vv, w, u, chunk=4), lambda: WR.rwkv6_scan_plain(
             r, kk, vv, w, u, chunk=4), (r, kk, vv, w, u, 4)),
@@ -230,6 +238,7 @@ def test_flop_formulas_equal_chip_smokes_counts(name):
     got = fc.get_total_flops()
     q = args[0]
     # each count as chip_smoke.py wrote it before the formulas were shared
+    name = name.split("_hd")[0]
     if name == "flash":
         B, S, H, hd = q.shape
         want = 4.0 * hd * B * H * S * (S + 1) / 2
