@@ -1,0 +1,50 @@
+"""``correct`` at smoke size on the CPU: a sound run passes; the control
+(the reference in fp8 in the program's place) and each fault that a cell
+can have, planted under the timed path, fail."""
+import pytest
+
+from bench_support import smoke_root  # noqa: F401 (fixture)
+from benchkit import harness
+from benchkit.spec import Spec
+from calibration.faults import planted
+
+SEEDS = (2**31 + 11, 77)
+
+
+def _run(root, cell, seed):
+    return harness.execute(cell, seed, 0.2, False, root=root, device="cpu")
+
+
+@pytest.mark.parametrize("cell", ["smoke.smoke_train", "smoke.smoke_prefill"])
+def test_sound_runs_are_correct(smoke_root, cell):
+    for seed in SEEDS:
+        out = _run(smoke_root, cell, seed)
+        assert out["line"]["correct"] is True, out["line"]["checks"]
+
+
+@pytest.mark.parametrize("cell", ["smoke.smoke_train", "smoke.smoke_prefill"])
+def test_the_control_fails(smoke_root, cell):
+    lim = harness.context(Spec(smoke_root), cell, 0, "cpu").limits
+    for seed in SEEDS:
+        ctx = harness.context(Spec(smoke_root), cell, seed, "cpu")
+        numbers = dict(harness.driver_of(ctx).control())
+        assert any(v > lim[n] for n, v in numbers.items()), numbers
+
+
+@pytest.mark.parametrize("cell,fault", [("smoke.smoke_train", "unchanged"),
+                                        ("smoke.smoke_train", "half_batch"),
+                                        ("smoke.smoke_prefill", "token")])
+def test_each_fault_fails(smoke_root, cell, fault):
+    with planted(Spec(smoke_root), fault):
+        for seed in SEEDS:
+            out = _run(smoke_root, cell, seed)
+            assert out["line"]["correct"] is False, (fault, out["line"]["checks"])
+
+
+def test_every_seed_sends_the_same_prompt_lengths(smoke_root):
+    lengths = []
+    for seed in SEEDS:
+        drv = harness.driver_of(harness.context(Spec(smoke_root), "smoke.smoke_prefill",
+                                                seed, "cpu"))
+        lengths.append([drv.next_length() for _ in range(7)])
+    assert lengths[0] == lengths[1] == [16, 48, 16, 16, 48, 16, 16]
