@@ -38,6 +38,7 @@ from repro_torch.launch.sharding import (
 )
 from repro_torch.models import lm
 from repro_torch.models.spmd import contiguous_strides, is_sharded, plain_replicated
+from repro_torch.obs import spans
 from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.tree import flatten, tree_map, unflatten
 
@@ -83,16 +84,21 @@ def value_and_grad(params, cfg: ArchConfig, batch, *, remat: bool = True,
     """((loss, metrics), grads) of `lm.loss_fn` at ``params``, grads a
     tree like ``params`` in each leaf's own dtype (as
     ``jax.value_and_grad`` gives them). ``params`` are not modified.
+    Under a profiler the forward and the gradient are the spans
+    ``train.forward`` and ``train.backward`` (`repro_torch.obs.spans`).
     With ``grad_shardings`` (a tree of placements like ``params``) each
     DTensor gradient is redistributed there."""
     leaves, treedef = flatten(params)
     live = [p.detach().requires_grad_() for p in leaves]
+    rec = spans.active()
     # the backward recomputes checkpointed blocks: plain tensors made
     # there meet DTensors too
     with torch.enable_grad(), plain_replicated():
-        loss, metrics = lm.loss_fn(unflatten(treedef, live), cfg, batch,
-                                   remat=remat, policy=policy)
-        grads = torch.autograd.grad(loss, live)
+        with spans.span(rec, "train.forward", leaves[0]):
+            loss, metrics = lm.loss_fn(unflatten(treedef, live), cfg, batch,
+                                       remat=remat, policy=policy)
+        with spans.span(rec, "train.backward", leaves[0]):
+            grads = torch.autograd.grad(loss, live)
     if grad_shardings is not None:
         grads = [g.redistribute(g.device_mesh, pl) if is_sharded(g) else g
                  for g, pl in zip(grads, placement_leaves(grad_shardings))]
@@ -135,7 +141,8 @@ def make_train_step(
     accumulating fp32 grads that are divided by the count afterwards;
     the metrics are the micro-batches' means. Weight decay goes to the
     leaves the JAX package decays (`lm.decay_mask`). ``policy`` and
-    ``grad_shardings`` go to `value_and_grad`.
+    ``grad_shardings`` go to `value_and_grad`. Under a profiler the
+    update is the span ``train.optimizer`` (`repro_torch.obs.spans`).
     """
     vg = dict(remat=remat, policy=policy, grad_shardings=grad_shardings)
 
@@ -153,9 +160,10 @@ def make_train_step(
                 ms.append(m)
             grads = tree_map(lambda g: g / micro_batches, grads)
             metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
-        params, opt_state, opt_metrics = adamw_update(
-            params, grads, opt_state, opt_cfg, decay=lm.decay_mask(params)
-        )
+        with spans.span(spans.active(), "train.optimizer", opt_state["step"]):
+            params, opt_state, opt_metrics = adamw_update(
+                params, grads, opt_state, opt_cfg, decay=lm.decay_mask(params)
+            )
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step

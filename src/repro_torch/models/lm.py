@@ -75,6 +75,7 @@ from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as M
 from repro_torch.models.module import dense_init, embed_init, ones
 from repro_torch.models.spmd import is_sharded, on_shards, pin, plain_replicated
+from repro_torch.obs import spans
 from repro_torch.tree import tree_map
 
 _MIXER_INIT = {"attn": L.attn_init, "mamba": M.mamba_init,
@@ -195,19 +196,22 @@ def _apply_block(kind, pm, pf, x, cfg, positions, policy=NO_POLICY):
     return _apply_ffn(ffn, pf, x, cfg, policy)
 
 
-def _apply_block_prefill(kind, pm, pf, x, cfg, positions, cache_len,
-                         policy=NO_POLICY):
-    mixer, ffn = kind
+def _mixer_prefill(mixer, pm, x, cfg, positions, cache_len, policy):
+    """A block's mixer over the prompt: (x, the layer's cache)."""
     if mixer == "attn":
-        x, cache = L.attention_prefill(
+        return L.attention_prefill(
             pm, x, cfg, positions, cache_len, head_pin=policy.pin_heads,
             entry_pin=policy.pin_gathered)
-    elif mixer == "mamba":
-        x, cache = M.mamba_prefill(pm, x, cfg, inner_pin=policy.pin_channels,
-                                   entry_pin=policy.pin_gathered)
-    else:
-        x, cache = R.rwkv_tmix_prefill(pm, x, cfg, head_pin=policy.pin_heads,
-                                       entry_pin=policy.pin_gathered)
+    if mixer == "mamba":
+        return M.mamba_prefill(pm, x, cfg, inner_pin=policy.pin_channels,
+                               entry_pin=policy.pin_gathered)
+    return R.rwkv_tmix_prefill(pm, x, cfg, head_pin=policy.pin_heads,
+                               entry_pin=policy.pin_gathered)
+
+
+def _ffn_prefill(ffn, pf, x, cfg, cache, policy):
+    """A block's ffn over the prompt: (x, the layer's cache with the
+    RWKV channel mix's last token added)."""
     if ffn == "rwkv_cmix":
         x, cmix_last = R.rwkv_cmix_prefill(pf, x, cfg,
                                            entry_pin=policy.pin_gathered)
@@ -478,15 +482,22 @@ def init_cache(cfg: ArchConfig, B: int, cache_len: int, *, device="cuda"):
 @_serving
 def prefill(params, cfg: ArchConfig, batch, cache_len: int, *,
             policy: ShardingPolicy = NO_POLICY):
-    """Run the full prompt; return (last-token logits (B, V) fp32, cache)."""
-    with plain_replicated():
+    """Run the full prompt; return (last-token logits (B, V) fp32, cache).
+
+    Under a profiler the call is the span ``prefill`` and each block's
+    halves its children ``prefill.mixer`` and ``prefill.ffn``, tagged
+    with their ``kind`` (`repro_torch.obs.spans`)."""
+    rec = spans.active()
+    with spans.span(rec, "prefill", params["final_norm"]), plain_replicated():
         x = policy.pin_act(_embed_inputs(params, cfg, batch))
         positions = _positions(x)
         cache = []
-        for kind, blk in zip(cfg.layer_plan(), params["blocks"]):
-            x, c = _apply_block_prefill(
-                kind, blk["mixer"], blk["ffn"], x, cfg, positions, cache_len,
-                policy)
+        for (mixer, ffn), blk in zip(cfg.layer_plan(), params["blocks"]):
+            with spans.span(rec, "prefill.mixer", x, mixer):
+                x, c = _mixer_prefill(mixer, blk["mixer"], x, cfg, positions,
+                                      cache_len, policy)
+            with spans.span(rec, "prefill.ffn", x, ffn):
+                x, c = _ffn_prefill(ffn, blk["ffn"], x, cfg, c, policy)
             x = policy.pin_act(x)
             cache.append(c)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

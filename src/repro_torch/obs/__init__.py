@@ -10,6 +10,11 @@ metrics, Perfetto export and trace-level differential diagnosis.
   loadable in Perfetto / chrome://tracing.
 - `trace_diff` — first-divergence diagnosis between two layers' event
   streams (`repro_torch.obs.diff`), wired into the conformance harness.
+- `SpanRecorder` / `Span` / `SpanTotals` (+ `SPAN_NAMES`) — timed spans
+  inside the train step and prefill, on the host's clock and the card's,
+  recorded while a `torch.profiler` session runs
+  (`repro_torch.obs.spans`; the port's own, with no JAX counterpart;
+  docs/repro_torch_spans.md).
 
 See docs/observability.md for the event schema and metric catalog;
 the vocabulary, metrics and diff are the JAX package's `repro.obs`,
@@ -28,6 +33,12 @@ from repro_torch.obs.metrics import (
     MetricsRegistry,
     percentile,
     percentile_summary,
+)
+from repro_torch.obs.spans import (
+    SPAN_NAMES,
+    Span,
+    SpanRecorder,
+    SpanTotals,
 )
 from repro_torch.obs.trace import (
     EVENT_KINDS,
@@ -49,6 +60,10 @@ __all__ = [
     "MetricsRegistry",
     "percentile",
     "percentile_summary",
+    "SPAN_NAMES",
+    "Span",
+    "SpanRecorder",
+    "SpanTotals",
     "EVENT_KINDS",
     "LAYERS",
     "TraceEvent",
