@@ -8,6 +8,19 @@ Run from the repository root, with one CUDA card visible::
 Phases, each printing what it finds; any failure exits non-zero:
 
 1. build   — compile every CUDA source of the port with nvcc, all at once.
+   Then the multi-tensor AdamW kernel (``csrc/adamw.cu``) on
+             Qwen1.5-1.8B's whole parameter tree (291 leaves, 1.836 B
+             parameters, bf16 parameters and gradients, fp32 moments),
+             first on a fresh card: with clipping off every leaf's p', m'
+             and v' the per-leaf code's bits; with clipping on (norm ~8.6
+             over a clip of 1) every leaf's p', m' and v' the bits of the
+             per-leaf code fed the gradients clipped at the kernel's own
+             norm, and that norm within 1e-6 of the per-leaf code's; two
+             launches bit-identical; the two kernels' card time per
+             step against the 24-bytes-a-parameter bound, the whole
+             update's time and host time, the per-leaf code's, each one's
+             peak memory, and ``torch._fused_adamw_`` over fp32 copies
+             (a yardstick the port never calls).
 2. kernel  — the preemptible-matmul window kernel against its plain
              PyTorch version on the card, at the serving path's shapes
              (M = 128 and the steady_city (K, N) chain, both window
@@ -141,7 +154,9 @@ Phases, each printing what it finds; any failure exits non-zero:
              the garbage collector first:
              finite losses and grad norms, two flash forward launches
              per layer per step (one more under remat) and one backward,
-             no other LM kernel; ms per step, tokens/s, card peak memory,
+             no other LM kernel, and two AdamW kernel launches a step
+             with no leaf through the per-leaf code; ms per step,
+             tokens/s, card peak memory,
              the last step under the profiler (busy share, top kernels,
              each backward pass's card time per step);
              a checkpoint resume on the card (smoke Minitron-4B at its own
@@ -184,7 +199,9 @@ Phases, each printing what it finds; any failure exits non-zero:
              against the NO_POLICY step within SPMD_LOSS_RTOL, then a
              warm-up and four timed steps (ms, tokens/s, peak memory,
              flash launches, the model FLOP rate from
-             ``roofline.analytic_cost`` and its share of 989 TFLOP/s).
+             ``roofline.analytic_cost`` and its share of 989 TFLOP/s;
+             AdamW by the per-leaf code on every DTensor leaf, no AdamW
+             kernel launch).
 13. examples — flash forward and backward at head widths 16 and 32
              (bf16 and fp32) against their plain versions at B 8 x 32
              heads, S 2048, timed beside bound and SDPA; then the five
@@ -201,15 +218,18 @@ Phases, each printing what it finds; any failure exits non-zero:
              ranks sharing the card: error 0 against the sequential
              backbone, 8 flash launches a rank), train_100m (run A: 300
              steps of 8 x 256, finite losses that fall, 12 forward and 6
-             backward flash launches a step, ms a step; run B: the
+             backward flash launches and 2 AdamW kernel launches a step,
+             no leaf through the per-leaf code on the card, ms a step;
+             run B: the
              example as a subprocess killed with SIGKILL once step 100's
              checkpoint committed, relaunched, resuming there, its logged
              losses from step 120 on equal to run A's within
              ``RESUME_RTOL``).
-14. report — a ``conformance`` and a ``kernels`` JSON line (seven
+14. report — a ``conformance`` and a ``kernels`` JSON line (eight
              hand-written kernels; flash attention's launches are the
              LM phase's Mistral-NeMo run, the pipeline's, the spmd
-             phase's and the examples'), the card's name and power
+             phase's and the examples'; AdamW's the train phase's and
+             the examples'), the card's name and power
              limit, and the result line.
 
 Exits with code 2 and prints no result when no CUDA card is visible.
@@ -320,7 +340,7 @@ from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.dryrun import summary as dryrun_summary  # noqa: E402
 from repro_torch.launch.mesh import make_dev_mesh  # noqa: E402
-from repro_torch.launch.shapes import ShapeCase  # noqa: E402
+from repro_torch.launch.shapes import ShapeCase, params_spec  # noqa: E402
 from repro_torch.launch.sharding import distribute_tree  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
     auto_micro_batches,
@@ -334,7 +354,14 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.module import param_bytes, param_count  # noqa: E402
 from repro_torch.obs import EVENT_KINDS, MetricsRegistry, TraceRecorder, trace_diff  # noqa: E402
-from repro_torch.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
+from repro_torch.kernels.adamw import adamw_fused_call  # noqa: E402
+from repro_torch.optim import (  # noqa: E402
+    AdamWConfig,
+    adamw_init,
+    adamw_per_leaf,
+    adamw_update,
+    step_scalars,
+)
 from repro_torch.pipeline import PharosServer, design_to_segments  # noqa: E402
 from repro_torch.pipeline.executor import BackboneCase, backbone_job, launch  # noqa: E402
 from repro_torch.pipeline.serve import window_plan  # noqa: E402
@@ -1753,6 +1780,8 @@ def reset_counts() -> None:
     rwkv6_scan_backward_call.launches = 0
     mamba_scan_call.launches = 0
     mamba_scan_backward_call.launches = 0
+    adamw_fused_call.launches = adamw_fused_call.leaves = 0
+    adamw_per_leaf.card_leaves = 0
 
 
 def counts() -> dict:
@@ -1763,6 +1792,7 @@ def counts() -> dict:
         "mamba_scan": mamba_scan_call.launches,
         "rwkv6_scan_backward": rwkv6_scan_backward_call.launches,
         "mamba_scan_backward": mamba_scan_backward_call.launches,
+        "adamw": adamw_fused_call.launches,
     }
 
 
@@ -2111,8 +2141,10 @@ WKV_BWD_PASSES = ("wkv6_bwd_sweep_kernel", "wkv6_bwd_reverse_kernel",
                   "wkv6_bwd_du_kernel")
 SCAN_BWD_PASSES = ("scan_bwd_stash_kernel", "scan_bwd_reverse_kernel",
                    "scan_bwd_dbc_kernel", "scan_bwd_dA_kernel")
+#: the AdamW kernel's two passes, in launch order
+ADAMW_PASSES = ("adamw_norm_kernel", "adamw_update_kernel")
 PORT_KERNELS = ("window_kernel", "fa_kernel", "wkv6_kernel", "scan_kernel",
-                *BWD_PASSES, *WKV_BWD_PASSES, *SCAN_BWD_PASSES)
+                *BWD_PASSES, *WKV_BWD_PASSES, *SCAN_BWD_PASSES, *ADAMW_PASSES)
 
 
 def _on_card(prof) -> tuple[float, int, list, dict]:
@@ -2708,11 +2740,17 @@ def train_main_path(cfg, label="main path") -> dict:
     per_step = {"flash_attention": 2 * n_attn, "flash_attention_backward": n_attn,
                 "rwkv6_scan": 2 * n_rwkv, "rwkv6_scan_backward": n_rwkv,
                 "mamba_scan": 2 * n_mamba, "mamba_scan_backward": n_mamba,
-                "preemptible_matmul_window": 0}
+                "preemptible_matmul_window": 0, "adamw": 2}
     for kernel, want in per_step.items():
         check(launched[kernel] == want * TRAIN_STEPS,
               f"{cfg.name}: {launched[kernel]} {kernel} launches in {TRAIN_STEPS} "
               f"steps, want {want} per step")
+    n_leaves = len(flatten_with_paths(params_spec(cfg))[1])
+    check(adamw_fused_call.leaves == n_leaves * TRAIN_STEPS
+          and adamw_per_leaf.card_leaves == 0,
+          f"{cfg.name}: AdamW kernel leaves {adamw_fused_call.leaves}, want "
+          f"{n_leaves} a step; per-leaf code leaves on the card "
+          f"{adamw_per_leaf.card_leaves}, want 0")
     step_s = [b - a for a, b in zip(marks[:-2], marks[1:-1])]  # steps 1 .. N-2
     ms_step = sum(step_s) / len(step_s) * 1e3
     tokens_s = TRAIN_BATCH * TRAIN_SEQ / (ms_step / 1e3)
@@ -2864,6 +2902,213 @@ def phase_train() -> tuple[dict, dict]:
                          stablelm_forward=fw,
                          rwkv_card_vs_cpu=rwkv_cpu, recurrent=recurrent,
                          wkv_bwd_row=wkv_row, scan_bwd_row=scan_row)
+
+
+# ---------------------------------------------------------------------------
+# the multi-tensor AdamW kernel at Qwen1.5-1.8B's whole parameter tree
+# ---------------------------------------------------------------------------
+#: the benchmark's training model (bench/configs/qwen1.5-1.8b.json) as the
+#: port's config: 24 layers, d 2048, 16 heads of 128, q/k/v biases,
+#: SwiGLU 5504, vocab 151,936 untied
+ADAMW_MODEL = dict(name="qwen1.5-1.8b", n_layers=24, d_model=2048, n_heads=16,
+                   n_kv_heads=16, d_ff=5504, vocab=151936)
+#: the benchmark's optimizer (bench/traffic/train_b8_s2048.json)
+ADAMW_OPT = AdamWConfig(lr_peak=3e-4, lr_min=3e-5, warmup_steps=0, total_steps=10000)
+#: the grad norm, kernel against the per-leaf code: the same squares
+#: summed in another order
+ADAMW_NORM_RTOL = 1e-6
+#: leaves a call of the per-leaf code takes when it is held to the
+#: kernel's clipped outputs (a few leaves at a time keep its
+#: temporaries small beside the whole tree's outputs)
+ADAMW_GROUP = 16
+
+
+def adamw_bytes(params, grads) -> int:
+    """Bytes the update needs: the norm reads g; the update reads p, g,
+    m, v and writes p', m', v' (fp32 moments)."""
+    return sum(p.numel() * (2 * p.element_size() + 2 * g.element_size() + 16)
+               for p, g in zip(params, grads))
+
+
+def adamw_case(cfg, seed) -> dict:
+    """The tree, gradients and a mid-training state of ``cfg`` drawn on
+    the card: bf16 parameters, bf16 gradients (a global norm of ~8.6, so
+    that the clip at 1 acts), fp32 moments; each as a tree and as leaves."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = lm.init_params(gen, cfg, torch.bfloat16, "cuda")
+    draw = lambda t, k: torch.randn(t.shape, generator=gen, device="cuda") * k  # noqa: E731
+    trees = {"params": params,
+             "grads": tree_map(lambda t: draw(t, 2e-4).to(t.dtype), params),
+             "ms": tree_map(lambda t: draw(t, 1e-4), params),
+             "vs": tree_map(lambda t: draw(t, 1e-4).square(), params),
+             "decay": lm.decay_mask(params)}
+    return {**trees, **{f"flat_{k}": flatten_with_paths(t)[1] for k, t in trees.items()},
+            "step": torch.full((), 100, dtype=torch.int32, device="cuda")}
+
+
+def adamw_args(case, opt):
+    """`adamw_fused_call`'s and `adamw_per_leaf`'s arguments for ``case``'s
+    next step under ``opt``."""
+    lr, bc1, bc2 = step_scalars(opt, case["step"] + 1)
+    return ([case[f"flat_{k}"] for k in ("params", "grads", "ms", "vs", "decay")],
+            dict(lr=lr, bc1=bc1, bc2=bc2, b1=opt.b1, b2=opt.b2, eps=opt.eps,
+                 weight_decay=opt.weight_decay, clip_norm=opt.clip_norm))
+
+
+def adamw_outputs(result) -> list:
+    """Every tensor an update returned: p', m', v' of each leaf, the norm."""
+    new_p, new_m, new_v, norm = result
+    return [*new_p, *new_m, *new_v, norm]
+
+
+def adamw_peak_gb(fn) -> float:
+    """Peak memory (GB) of one call over what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak / 1e9
+
+
+def adamw_differ_at_norm(args, kw, got, norm) -> int:
+    """Outputs of ``got`` (`adamw_outputs` of the kernel's call on
+    ``args``) that differ from the per-leaf code's fed the gradients
+    clipped at the kernel's own ``norm`` by `clip_by_global_norm`'s
+    formula, its own clip off; ADAMW_GROUP leaves a call."""
+    params, grads, ms, vs, decay = args
+    n = len(params)
+    scale = torch.clamp(kw["clip_norm"] / torch.clamp(norm, min=1e-12), max=1.0)
+    differ = 0
+    for lo in range(0, n, ADAMW_GROUP):
+        part = slice(lo, lo + ADAMW_GROUP)
+        clipped = [(g.float() * scale).to(g.dtype) for g in grads[part]]
+        want = adamw_per_leaf(params[part], clipped, ms[part], vs[part], decay[part],
+                              **dict(kw, clip_norm=math.inf))
+        for role, want_role in enumerate(want[:3]):
+            differ += sum(not torch.equal(a, b) for a, b in
+                          zip(got[role * n:(role + 1) * n][part], want_role))
+        del clipped, want
+    return differ
+
+
+def phase_adamw() -> dict:
+    """The AdamW kernel against the per-leaf code on Qwen1.5-1.8B's whole
+    tree: bit for bit with clipping off; with it on, bit for bit against
+    the per-leaf code fed the gradients clipped at the kernel's own norm,
+    and that norm against the per-leaf code's; its times. Returns its row
+    of the ``kernels`` line."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(load_config("qwen1_5_32b"), **ADAMW_MODEL)
+    case = adamw_case(cfg, 41)
+    leaves = case["flat_params"]
+    n_leaves, n_params = len(leaves), sum(p.numel() for p in leaves)
+    nbytes = adamw_bytes(leaves, case["flat_grads"])
+    bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    print(f"[adamw] {cfg.name}: {n_leaves} leaves, {n_params / 1e9:.4f} B parameters "
+          f"(bf16, bf16 gradients, fp32 moments); the update needs {nbytes / 1e9:.2f} GB, "
+          f"bound {bound_ms:.3f} ms at {PEAK_BYTES_S / 1e12:g} TB/s")
+    # clipping off (scale 1): every output the per-leaf code's bits
+    args, kw = adamw_args(case, dataclasses.replace(ADAMW_OPT, clip_norm=math.inf))
+    got = adamw_outputs(adamw_fused_call(*args, **kw))
+    want = adamw_outputs(adamw_per_leaf(*args, **kw))
+    differ = sum(not torch.equal(a, b) for a, b in zip(got[:-1], want[:-1]))
+    check(differ == 0, f"adamw, clipping off: {differ} of {3 * n_leaves} outputs differ "
+          "from the per-leaf code's")
+    del got, want
+    # clipping on: two launches the same bits; every output the per-leaf
+    # code's at the kernel's norm; that norm and the per-leaf code's
+    args, kw = adamw_args(case, ADAMW_OPT)
+    first = adamw_outputs(adamw_fused_call(*args, **kw))
+    again = adamw_outputs(adamw_fused_call(*args, **kw))
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          "adamw: two launches give the same bits")
+    del again
+    at_norm = adamw_differ_at_norm(args, kw, first, first[-1])
+    check(at_norm == 0, f"adamw, clipping on: {at_norm} of {3 * n_leaves} outputs "
+          "differ from the per-leaf code's at the kernel's norm")
+    plain = adamw_outputs(adamw_per_leaf(*args, **kw))
+    norm, plain_norm = first[-1].item(), plain[-1].item()
+    norm_rel = _rel(norm, plain_norm)
+    check(norm_rel <= ADAMW_NORM_RTOL,
+          f"adamw grad norm {norm} vs {plain_norm} (rel {norm_rel:.3g})")
+    p_err = max((a.float() - b.float()).abs().max().item()
+                for a, b in zip(first[:n_leaves], plain[:n_leaves]))
+    p_differ = sum(int((a != b).sum()) for a, b in zip(first[:n_leaves], plain[:n_leaves]))
+    print(f"[adamw] clipping off: p', m', v' of every leaf the per-leaf code's bits; "
+          f"on (norm {norm:.6f}, scale {min(1.0, 1 / norm):.4g}): p', m', v' of every "
+          f"leaf the per-leaf code's bits at the kernel's norm, norm rel {norm_rel:.3g} "
+          f"(<= {ADAMW_NORM_RTOL}) of the per-leaf code's, against whose own run "
+          f"{p_differ} of {n_params} bf16 parameters differ (max abs {p_err:.3g}); two "
+          f"launches the same bits")
+    del first, plain
+    # times
+    update = lambda: adamw_fused_call(*args, **kw)  # noqa: E731
+    ms = cuda_ms(update, reps=20)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            update()
+        torch.cuda.synchronize()
+    card_us, n_card, top, own = _on_card(prof)
+    passes = {k: own.get(k, (0.0, 0))[0] / 3 / 1e3 for k in ADAMW_PASSES}
+    kernel_ms = sum(passes.values())
+    check(all(passes.values()), f"adamw: the profiler saw both passes {passes} (it saw "
+          f"{n_card} kernels and copies, {card_us:.1f} us; top {top})")
+    state = {"m": case["ms"], "v": case["vs"], "step": case["step"]}
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t_host = time.perf_counter()
+        out = adamw_update(case["params"], case["grads"], state, ADAMW_OPT,
+                           decay=case["decay"])
+        host.append((time.perf_counter() - t_host) * 1e3)
+        del out
+    host_ms = sorted(host)[2]
+    plain_ms = cuda_ms(lambda: adamw_per_leaf(*args, **kw), reps=5)
+    peak = {"kernel": adamw_peak_gb(update),
+            "per-leaf": adamw_peak_gb(lambda: adamw_per_leaf(*args, **kw))}
+    lib_ms, lib_bound = adamw_library_ms(case)
+    print(f"[adamw] card ms a step: kernels {kernel_ms:.3f} ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in passes.items())
+          + f"), {bound_ms / kernel_ms * 100:.1f}% of the bound, "
+          f"{kernel_ms / bound_ms:.2f}x it; the whole call (descriptor copy and "
+          f"kernels, CUDA events over 20 back-to-back calls) {ms:.3f}; host "
+          f"{host_ms:.3f} ms for `adamw_update` (schedule, table, launches) from an "
+          f"empty queue, median of 5; per-leaf code {plain_ms:.3f} (CUDA events, 5 "
+          f"calls); torch._fused_adamw_ over fp32 copies (28 bytes a parameter, no "
+          f"clip; a yardstick the port never calls) {lib_ms:.3f}, its bound "
+          f"{lib_bound:.3f}; peak memory over the inputs: kernel "
+          f"{peak['kernel']:.3f} GB, per-leaf code {peak['per-leaf']:.3f} GB; "
+          f"{card_line()}")
+    del case, args, kw, update, state, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[adamw] phase: {time.perf_counter() - t0:.3f} s")
+    return {"ms": kernel_ms, "call_ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+            "max_abs_err": p_err, "norm_rel": norm_rel, "passes_ms": passes,
+            "peak_gb": peak, "leaves": n_leaves, "params": n_params}
+
+
+def adamw_library_ms(case) -> tuple[float, float]:
+    """``torch._fused_adamw_`` (in place, no clipping) over fp32 copies of
+    the tree, gradients and moments (one dtype for all four, as
+    ``torch.optim.AdamW(fused=True)`` keeps its state), and its bound at
+    28 bytes a parameter; the copies are freed."""
+    f32 = lambda xs: [x.float() for x in xs]  # noqa: E731
+    p, g, m, v = (f32(case[f"flat_{k}"]) for k in ("params", "grads", "ms", "vs"))
+    steps = [torch.ones((), device="cuda") for _ in p]
+    fn = lambda: torch._fused_adamw_(  # noqa: E731
+        p, g, m, v, [], steps, lr=ADAMW_OPT.lr_peak, beta1=ADAMW_OPT.b1,
+        beta2=ADAMW_OPT.b2, weight_decay=ADAMW_OPT.weight_decay, eps=ADAMW_OPT.eps,
+        amsgrad=False, maximize=False)
+    ms = cuda_ms(fn, reps=10)
+    bound = sum(x.numel() for x in p) * 28 / PEAK_BYTES_S * 1e3
+    del p, g, m, v
+    torch.cuda.empty_cache()
+    return ms, bound
 
 
 # ---------------------------------------------------------------------------
@@ -3160,6 +3405,7 @@ def phase_spmd() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         fn, (params, opt, batch) = spmd_model(cfg8, train, mesh, SPMD_SEED + 2)
+        n_leaves8 = len(flatten_with_paths(params)[1])
         micro = auto_micro_batches(cfg8, train, mesh)
         torch.cuda.reset_peak_memory_stats()
         losses, marks = [], []
@@ -3172,6 +3418,7 @@ def phase_spmd() -> dict:
             marks.append(time.perf_counter() - t)
         train_launches = dict(counts(),
                               flash_attention_backward=flash_attention_backward_call.launches)
+        per_leaf = adamw_per_leaf.card_leaves
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         del fn, params, opt, batch, metrics
     check(all(math.isfinite(x) for x in losses), f"spmd train losses {losses}")
@@ -3179,6 +3426,10 @@ def phase_spmd() -> dict:
     check(train_launches["flash_attention"] == SPMD_STEPS * want_fwd
           and train_launches["flash_attention_backward"] == SPMD_STEPS * want_bwd,
           f"spmd train launches {train_launches}, want {want_fwd} / {want_bwd} a step")
+    # DTensor leaves: the per-leaf code (its norm a cross-rank sum), never the kernel
+    check(train_launches["adamw"] == 0 and per_leaf == SPMD_STEPS * n_leaves8,
+          f"spmd train: {train_launches['adamw']} AdamW kernel launches, want 0; "
+          f"{per_leaf} leaves through the per-leaf code, want {n_leaves8} a step")
     ms_step = sum(marks[1:]) / SPMD_STEPS * 1e3
     model_flops = roofline.analytic_cost(cfg8, train).model_flops
     rate = model_flops / (ms_step / 1e3)
@@ -3190,7 +3441,8 @@ def phase_spmd() -> dict:
           f"{TRAIN_BATCH * TRAIN_SEQ / (ms_step / 1e3):.1f} tokens/s, card peak "
           f"memory {peak_gb:.3f} GB; flash launches a step "
           f"{train_launches['flash_attention'] // SPMD_STEPS} forward, "
-          f"{train_launches['flash_attention_backward'] // SPMD_STEPS} backward; losses "
+          f"{train_launches['flash_attention_backward'] // SPMD_STEPS} backward; AdamW "
+          f"by the per-leaf code on {per_leaf // SPMD_STEPS} DTensor leaves a step; losses "
           f"{[round(x, 4) for x in losses]}; model FLOP rate {rate / 1e12:.3f} TFLOP/s "
           f"({model_flops:.4e} model flops a step, analytic_cost), "
           f"{rate / roofline.PEAK_FLOPS * 100:.2f}% of {roofline.PEAK_FLOPS / 1e12:g} "
@@ -3386,7 +3638,8 @@ def train_run_a(root) -> dict:
     """Run A: ``train_100m.train`` at its defaults in this process, alone on
     the card (a fresh checkpoint directory under ``root``): 300 finite
     losses whose last tenth's mean is below the first tenth's, 12 forward
-    and 6 backward flash launches a step, its ms a step."""
+    and 6 backward flash launches a step, 2 AdamW kernel launches a step
+    and no leaf through the per-leaf code on the card, its ms a step."""
     gc.collect()
     gc.freeze()  # keep the earlier phases' objects out of the steps' collections
     torch.cuda.empty_cache()
@@ -3397,6 +3650,7 @@ def train_run_a(root) -> dict:
                                       ckpt_dir=os.path.join(root, "a"))
     got = counts()
     fwd, bwd = got.pop("flash_attention"), flash_attention_backward_call.launches
+    adamw = got.pop("adamw")
     steps, cfg = len(losses), ex_train.build_100m()
     check(steps == 300 and all(math.isfinite(x) for x in losses),
           f"train_100m: {steps} finite losses")
@@ -3406,6 +3660,10 @@ def train_run_a(root) -> dict:
     check(fwd == 2 * cfg.n_layers * steps and bwd == cfg.n_layers * steps,
           f"train_100m: {fwd} forward / {bwd} backward flash launches over "
           f"{steps} steps")
+    check(adamw == 2 * steps and adamw_per_leaf.card_leaves == 0,
+          f"train_100m: {adamw} AdamW kernel launches over {steps} steps, want 2 a "
+          f"step; per-leaf code leaves on the card {adamw_per_leaf.card_leaves}, "
+          f"want 0")
     check(not any(got.values()), f"train_100m: no other kernel launched: {got}")
     gaps = sorted(b[1] - a[1] for a, b in zip(marks, marks[1:])
                   if (a[0] + 1) % 50)  # the gaps after a checkpoint left out
@@ -3413,11 +3671,13 @@ def train_run_a(root) -> dict:
     tokens = 8 * 256
     print(f"[examples] train_100m run A: {steps} steps, loss {first:.4f} -> "
           f"{last:.4f}, {fwd // steps} forward and {bwd // steps} backward flash "
-          f"launches a step, median {step_ms:.3f} ms a step ({tokens / step_ms * 1e3:.0f} "
+          f"launches a step, {adamw // steps} AdamW kernel launches a step and "
+          f"{adamw_fused_call.leaves // steps} leaves, median {step_ms:.3f} ms a step ({tokens / step_ms * 1e3:.0f} "
           f"tokens/s; host clock, checkpoint steps left out), {secs:.3f} s in all "
           f"with 6 checkpoints, peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
           f"{card_line()}")
-    return {"losses": losses, "forward_launches": fwd, "backward_launches": bwd}
+    return {"losses": losses, "forward_launches": fwd, "backward_launches": bwd,
+            "adamw_launches": adamw}
 
 
 class KilledRun:
@@ -3525,7 +3785,8 @@ def phase_examples() -> dict:
     print(f"[examples] phase: {time.perf_counter() - t0:.3f} s (narrow flash "
           f"{t_narrow:.3f} s)")
     return {"window_launches": windows, "flash_launches": flash,
-            "backward_launches": run_a["backward_launches"]}
+            "backward_launches": run_a["backward_launches"],
+            "adamw_launches": run_a["adamw_launches"]}
 
 
 def card_line() -> str:
@@ -3581,6 +3842,7 @@ def main() -> int:
     torch.cuda.set_device(0)
     print(f"[card] {card_line()}")  # every number below was taken on it
     phase_build()
+    adamw_row = phase_adamw()
     rows, head = phase_kernel()
     launches = phase_serve()
     phase_wall()
@@ -3660,7 +3922,21 @@ def main() -> int:
     )
     scan_bwd["shape"] = {k: train["scan_bwd_row"][k]
                          for k in ("B", "S", "di", "ns", "dtype")}
-    entries = [pmm, flash, wkv, scan, bwd, wkv_bwd, scan_bwd]
+    adamw = kernel_entry(
+        "adamw", "src/repro_torch/csrc/adamw.cu",
+        "none: src/repro/optim/adamw.py:76 adamw_update is jnp, one XLA fusion a leaf",
+        "fma", train["launches"]["adamw"] + sum(
+            r["launches"]["adamw"] for r in train["recurrent"].values())
+        + examples["adamw_launches"], adamw_row)
+    adamw.update(launches_by_path={"train": train["launches"]["adamw"],
+                                   **{name: r["launches"]["adamw"]
+                                      for name, r in train["recurrent"].items()},
+                                   "examples": examples["adamw_launches"]},
+                 passes_ms=adamw_row["passes_ms"], call_ms=adamw_row["call_ms"],
+                 host_ms=adamw_row["host_ms"],
+                 shape={"model": "qwen1.5-1.8b", "leaves": adamw_row["leaves"],
+                        "params": adamw_row["params"], "dtype": "bfloat16"})
+    entries = [pmm, flash, wkv, scan, bwd, wkv_bwd, scan_bwd, adamw]
     print(previous_line(entries))
     print(json.dumps({"conformance": conf}))
     print(json.dumps({"kernels": entries}))

@@ -20,6 +20,9 @@ Kernels:
   an RWKV-6 prefill.
 - ``mamba_scan`` — the selective scan, every mamba layer of a Jamba
   prefill.
+- ``adamw`` — the optimizer's global-norm clip and AdamW update over a
+  whole parameter tree in two launches (no Pallas counterpart; its
+  plain version is `repro_torch.optim.adamw.adamw_per_leaf`).
 
 ``flash_attention``, ``rwkv6_scan`` and ``mamba_scan`` are imported from
 their own packages: a function of the same name here would hide the subpackage

@@ -41,7 +41,8 @@ The program's spans (`SPAN_NAMES`):
   around `lm.loss_fn` and around ``torch.autograd.grad`` (one of each a
   micro-batch);
 - ``train.optimizer`` — `launch.steps.make_train_step` around
-  `optim.adamw_update` (the clip and the per-leaf AdamW);
+  `optim.adamw_update` (the clip and the update: the multi-tensor
+  kernel on a card, the per-leaf code on the CPU or DTensors);
 - ``prefill`` — `lm.prefill`, the whole call;
 - ``prefill.mixer`` / ``prefill.ffn`` — each block's two halves in
   `lm.prefill`'s layer loop, children of ``prefill``, of the ``kind``

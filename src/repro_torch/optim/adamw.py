@@ -9,6 +9,14 @@ All functions take any nested dict / list / tuple of tensors
 (`repro_torch.tree`), and the step counter and schedule stay tensors on
 the parameters' device, so a step reads nothing back to the host.
 
+`adamw_update` takes one of two routes, by what its trees hold: plain
+tensors with any leaf on a card go to the multi-tensor kernel
+(`repro_torch.kernels.adamw.adamw_fused_call`: two launches for the
+whole tree, the same arithmetic, which refuses a tree it does not take);
+CPU trees, and trees with any DTensor leaf (whose norm needs a
+cross-rank reduction), take the per-leaf code below, the kernel's plain
+version (`adamw_per_leaf`).
+
 Weight decay goes to the leaves the JAX package decays: ``p.ndim >= 2``
 of its parameter tree. A model whose tree holds its leaves with other
 shapes than the JAX package's passes ``decay``, a tree of bools
@@ -20,7 +28,9 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels.adamw import adamw_fused_call
 from repro_torch.tree import flatten, tree_map, unflatten
 
 
@@ -79,17 +89,22 @@ def _is_matrix(p) -> bool:
     return p.ndim >= 2  # decay weights, not biases/norms/scalars
 
 
-def adamw_update(params, grads, state, cfg: AdamWConfig, *, decay=None):
-    """One AdamW step. Returns (new_params, new_state, metrics).
-
-    ``decay``: a tree of bools like ``params`` naming the leaves that get
-    weight decay; by default those with ``ndim >= 2``."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    step = state["step"] + 1
+def step_scalars(cfg: AdamWConfig, step):
+    """(lr, bc1, bc2) at ``step`` (an int32 tensor, counted from 1):
+    fp32 tensors on its device."""
     lr = cosine_schedule(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1.0 - b1 ** step.float()
-    bc2 = 1.0 - b2 ** step.float()
+    bc1 = 1.0 - cfg.b1 ** step.float()
+    bc2 = 1.0 - cfg.b2 ** step.float()
+    return lr, bc1, bc2
+
+
+def adamw_per_leaf(params, grads, ms, vs, decay, *, lr, bc1, bc2, b1: float,
+                   b2: float, eps: float, weight_decay: float, clip_norm: float):
+    """The per-leaf code over lists of leaves, `adamw_fused_call`'s plain
+    version with its arguments and results: (new params, new m, new v,
+    the gradients' global norm). Leaves on a card add to
+    ``adamw_per_leaf.card_leaves``."""
+    grads, gnorm = clip_by_global_norm(grads, clip_norm)
 
     def upd(p, g, m, v, wd):
         g32 = g.float()
@@ -97,21 +112,52 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, *, decay=None):
         v_new = b2 * v + (1.0 - b2) * torch.square(g32)
         mhat = m_new / bc1
         vhat = v_new / bc2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+        delta = mhat / (torch.sqrt(vhat) + eps)
         if wd:
-            delta = delta + cfg.weight_decay * p.float()
+            delta = delta + weight_decay * p.float()
         p_new = (p.float() - lr * delta).to(p.dtype)
         return p_new, m_new, v_new
 
+    out = [upd(*xs) for xs in zip(params, grads, ms, vs, decay)]
+    adamw_per_leaf.card_leaves += sum(p.device.type == "cuda" for p in params)
+    return [o[0] for o in out], [o[1] for o in out], [o[2] for o in out], gnorm
+
+
+#: leaves the per-leaf code updated on a card since the count was last
+#: set to 0 (a DTensor tree, or a direct call)
+adamw_per_leaf.card_leaves = 0
+
+
+def _takes_kernel(leaves) -> bool:
+    """A tree of plain tensors with a leaf on a card goes to the kernel."""
+    on_card = False
+    for x in leaves:
+        if isinstance(x, DTensor):
+            return False
+        on_card = on_card or x.is_cuda
+    return on_card
+
+
+def adamw_update(params, grads, state, cfg: AdamWConfig, *, decay=None):
+    """One AdamW step. Returns (new_params, new_state, metrics).
+
+    ``decay``: a tree of bools like ``params`` naming the leaves that get
+    weight decay; by default those with ``ndim >= 2``. A tree of plain
+    tensors with a leaf on a card goes to `adamw_fused_call`, any other
+    to `adamw_per_leaf`."""
     flat_p, treedef = flatten(params)
     flat_g, flat_m, flat_v = (flatten(t)[0] for t in (grads, state["m"], state["v"]))
     flat_d = ([_is_matrix(p) for p in flat_p] if decay is None
               else flatten(decay)[0])
     if not (len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v) == len(flat_d)):
         raise ValueError("params, grads, moments and decay differ in structure")
-    out = [upd(*xs) for xs in zip(flat_p, flat_g, flat_m, flat_v, flat_d)]
-    new_p = unflatten(treedef, [o[0] for o in out])
-    new_m = unflatten(treedef, [o[1] for o in out])
-    new_v = unflatten(treedef, [o[2] for o in out])
-    state = {"m": new_m, "v": new_v, "step": step}
-    return new_p, state, {"grad_norm": gnorm, "lr": lr}
+    update = (adamw_fused_call if _takes_kernel(flat_p + flat_g + flat_m + flat_v)
+              else adamw_per_leaf)
+    step = state["step"] + 1
+    lr, bc1, bc2 = step_scalars(cfg, step)
+    new_p, new_m, new_v, gnorm = update(
+        flat_p, flat_g, flat_m, flat_v, flat_d, lr=lr, bc1=bc1, bc2=bc2, b1=cfg.b1,
+        b2=cfg.b2, eps=cfg.eps, weight_decay=cfg.weight_decay, clip_norm=cfg.clip_norm)
+    state = {"m": unflatten(treedef, new_m), "v": unflatten(treedef, new_v),
+             "step": step}
+    return unflatten(treedef, new_p), state, {"grad_norm": gnorm, "lr": lr}

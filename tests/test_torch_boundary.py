@@ -112,7 +112,7 @@ def test_percentile_summary_matches_reference():
 
 def test_kernel_build_is_content_addressed():
     assert _build.source_names() == [
-        "flash_attention", "flash_attention_bwd", "mamba_scan",
+        "adamw", "flash_attention", "flash_attention_bwd", "mamba_scan",
         "mamba_scan_bwd", "preemptible_matmul", "rwkv6_scan", "rwkv6_scan_bwd",
     ]
     path = _build.library_path("preemptible_matmul")

@@ -1416,3 +1416,276 @@ def test_lowerable_train_step_on_four_cards_equals_one_card(card):
     assert abs(four["step_loss"] - one["step_loss"]) <= 1e-5 * abs(one["step_loss"])
     for g, w in zip(flatten(four["params"])[0], flatten(one["params"])[0]):
         assert np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the multi-tensor AdamW kernel (csrc/adamw.cu) against the per-leaf code
+# ---------------------------------------------------------------------------
+#: the ragged tree's shapes, each in four pairings of parameter and
+#: gradient dtype, plus one bf16 leaf read through a view at an odd offset
+ADAMW_SHAPES = [(), (1,), (3,), (2048,), (2**20 + 7,), (64, 48)]
+ADAMW_PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+               (torch.float32, torch.float32), (torch.float32, torch.bfloat16)]
+
+
+def _adamw_tree(seed, device, grad_scale):
+    """(params, grads, state, decay): the ragged tree on ``device``, its
+    gradients drawn at ``grad_scale``, a state after some steps (moments
+    drawn, step 5) and every other leaf decayed."""
+    gen = torch.Generator().manual_seed(seed)
+    draw = lambda s, k: torch.randn(s, generator=gen) * k  # noqa: E731
+    params, grads, ms, vs = {}, {}, {}, {}
+    for i, shape in enumerate(ADAMW_SHAPES):
+        for j, (pd, gd) in enumerate(ADAMW_PAIRS):
+            key = f"l{i}_{j}"
+            params[key] = draw(shape, 1.0).to(device, pd)
+            grads[key] = draw(shape, grad_scale).to(device, gd)
+            ms[key] = draw(shape, 1e-3).to(device)
+            vs[key] = draw(shape, 1e-3).square().to(device)
+    n = 4097  # the odd-offset leaf: element 1 of a buffer is 2 bytes in
+    for tree, dtype, k in ((params, torch.bfloat16, 1.0),
+                           (grads, torch.bfloat16, grad_scale)):
+        tree["odd"] = draw((n + 1,), k).to(device, dtype)[1:]
+    ms["odd"] = draw((n,), 1e-3).to(device)
+    vs["odd"] = draw((n,), 1e-3).square().to(device)
+    decay = {k: i % 2 == 0 for i, k in enumerate(sorted(params))}
+    state = {"m": ms, "v": vs, "step": torch.full((), 5, dtype=torch.int32, device=device)}
+    return params, grads, state, decay
+
+
+def _per_leaf(params, grads, state, cfg, decay, clip_norm=None):
+    """The per-leaf code on the same trees: flat (p', m', v', norm)."""
+    from repro_torch.optim import adamw_per_leaf, step_scalars
+    from repro_torch.tree import flatten
+
+    lr, bc1, bc2 = step_scalars(cfg, state["step"] + 1)
+    return adamw_per_leaf(
+        *(flatten(t)[0] for t in (params, grads, state["m"], state["v"], decay)),
+        lr=lr, bc1=bc1, bc2=bc2, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+        weight_decay=cfg.weight_decay,
+        clip_norm=cfg.clip_norm if clip_norm is None else clip_norm)
+
+
+def _flat_step(new_p, new_state):
+    from repro_torch.tree import flatten
+
+    return [flatten(t)[0] for t in (new_p, new_state["m"], new_state["v"])]
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_is_the_per_leaf_code_bit_for_bit_without_clipping(card):
+    """Four steps with the clip inactive (scale 1), each from the kernel's
+    own previous state: p', m', v' the per-leaf code's bits on every leaf
+    (every dtype pairing, the odd-offset view's element-by-element walk);
+    the norm within 1e-6 (the same squares summed in another order)."""
+    from repro_torch.optim import AdamWConfig, adamw_update
+
+    cfg = AdamWConfig(lr_peak=1e-2, warmup_steps=2, total_steps=10, clip_norm=1e6)
+    params, _, state, decay = _adamw_tree(0, card, 1.0)
+    for step in range(4):
+        grads = _adamw_tree(10 + step, card, 1.0)[1]
+        new_p, new_state, metrics = adamw_update(params, grads, state, cfg, decay=decay)
+        want = _per_leaf(params, grads, state, cfg, decay)
+        for got_role, want_role in zip(_flat_step(new_p, new_state), want[:3]):
+            for got, w in zip(got_role, want_role):
+                assert got.dtype == w.dtype and got.shape == w.shape
+                assert torch.equal(got, w)
+        assert _rel(metrics["grad_norm"], want[3]) <= 1e-6
+        params, state = new_p, new_state
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_with_clipping_is_the_per_leaf_code_at_its_own_norm(card):
+    """Four steps with the clip active (gradients at 50, norm ~1e5 over a
+    clip of 1). Each step from the kernel's state: the norm within 1e-6
+    of the per-leaf code's; every output the bits of the per-leaf code
+    fed the gradients clipped at the kernel's norm (by
+    `clip_by_global_norm`'s own formula) with its clip off; and against
+    the per-leaf code as it is, bf16 parameters within one ulp, fp32
+    parameters and the moments within 1e-6 of the terms each sums (m':
+    |m'| + (1 - b1)|gc|; v': |v'| + (1 - b2) gc^2; p': |p'| + |p - p'|),
+    except where a bf16 clipped gradient rounds one bf16 ulp apart under
+    the two norms (the scales differ in their last bits): at most a
+    thousandth of the bf16 gradients' elements."""
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.tree import flatten, tree_map
+
+    cfg = AdamWConfig(lr_peak=1e-2, warmup_steps=2, total_steps=10, clip_norm=1.0)
+    params, _, state, decay = _adamw_tree(1, card, 1.0)
+    flipped = total = 0
+    for step in range(4):
+        grads = _adamw_tree(20 + step, card, 50.0)[1]
+        new_p, new_state, metrics = adamw_update(params, grads, state, cfg, decay=decay)
+        norm = metrics["grad_norm"]
+        plain = _per_leaf(params, grads, state, cfg, decay)
+        assert norm.item() > 1e3 and _rel(norm, plain[3]) <= 1e-6
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(norm, min=1e-12), max=1.0)
+        clipped = tree_map(lambda g: (g.float() * scale).to(g.dtype), grads)
+        at_norm = _per_leaf(params, clipped, state, cfg, decay, clip_norm=math.inf)
+        got = _flat_step(new_p, new_state)
+        for got_role, want_role in zip(got, at_norm[:3]):
+            assert all(torch.equal(a, b) for a, b in zip(got_role, want_role))
+        p_scale = torch.clamp(cfg.clip_norm / torch.clamp(plain[3], min=1e-12), max=1.0)
+        flat_p = flatten(params)[0]
+        for i, g in enumerate(flatten(grads)[0]):
+            gc = (g.float() * scale).to(g.dtype).float()
+            same = torch.ones_like(g, dtype=torch.bool)
+            if g.dtype == torch.bfloat16:
+                same = ((g.float() * scale).to(g.dtype)
+                        == (g.float() * p_scale).to(g.dtype))
+                flipped += int((~same).sum())
+                total += same.numel()
+            p, w = got[0][i], plain[0][i]
+            if p.dtype == torch.bfloat16:
+                ulp = torch.ldexp(torch.ones_like(w.float()), torch.frexp(w.float())[1] - 8)
+                assert ((p.float() - w.float()).abs() <= ulp)[same].all()
+            pairs = [(got[1][i], plain[1][i], (1 - cfg.b1) * gc.abs()),
+                     (got[2][i], plain[2][i], (1 - cfg.b2) * gc.square())]
+            if p.dtype == torch.float32:
+                pairs.append((p, w, (flat_p[i] - w).abs()))
+            for a, b, term in pairs:
+                assert ((a - b).abs() <= 1e-6 * (b.abs() + term))[same].all()
+        params, state = new_p, new_state
+    assert flipped <= 1e-3 * total
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_is_bit_identical_across_launches_and_reads_only(card):
+    """Two calls on the same inputs give the same bits, norm included (no
+    atomics); the inputs are unchanged after them."""
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.tree import flatten, tree_map
+
+    cfg = AdamWConfig(lr_peak=1e-2, warmup_steps=2, total_steps=10, clip_norm=1.0)
+    params, grads, state, decay = _adamw_tree(2, card, 50.0)
+    before = [t.clone() for t in flatten((params, grads, state))[0]]
+    runs = [adamw_update(params, grads, state, cfg, decay=decay) for _ in range(2)]
+    flat = [flatten((p, s, m["grad_norm"]))[0] for p, s, m in runs]
+    assert all(torch.equal(a, b) for a, b in zip(*flat))
+    assert all(torch.equal(a, b) for a, b in zip(flatten((params, grads, state))[0],
+                                                 before))
+    assert tree_map(lambda t: t.data_ptr(), runs[0][0]) != tree_map(
+        lambda t: t.data_ptr(), params)
+
+
+@pytest.mark.cuda
+def test_adamw_step_reads_nothing_back_to_the_host(card):
+    """`adamw_update` on a card tree (schedule, descriptor copy, both
+    launches) under torch's sync debug mode set to raise."""
+    from repro_torch.optim import AdamWConfig, adamw_update
+
+    cfg = AdamWConfig(lr_peak=1e-2, warmup_steps=2, total_steps=10)
+    params, grads, state, decay = _adamw_tree(3, card, 50.0)
+    adamw_update(params, grads, state, cfg, decay=decay)  # load the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = adamw_update(params, grads, state, cfg, decay=decay)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert math.isfinite(out[2]["grad_norm"].item())
+
+
+@pytest.mark.cuda
+def test_adamw_route_through_the_bench_train_program(card):
+    """The benchmark's own training step (`bench/drivers/train.py
+    make_program`) on Qwen1.5-1.8B cut to 2 layers: each step two kernel
+    launches, every leaf through the kernel, none through the per-leaf
+    code on the card."""
+    import json
+    import sys
+
+    from repro_torch.kernels.adamw import adamw_fused_call
+    from repro_torch.optim import adamw_init, adamw_per_leaf
+    from repro_torch.tree import flatten
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(root, "bench"))
+    from benchkit import model, tokens, weights
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_train", os.path.join(root, "bench", "drivers", "train.py"))
+    bench_train = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench_train)
+    with open(os.path.join(root, "bench", "configs", "qwen1.5-1.8b.json")) as f:
+        sizes = dataclasses.replace(model.sizes("qwen1.5-1.8b", json.load(f)), layers=2)
+    with open(os.path.join(root, "bench", "traffic", "train_b8_s2048.json")) as f:
+        opt = json.load(f)["optimizer"]
+    params = weights.port_tree(weights.make(sizes, 7, card), sizes)
+    state = adamw_init(params)
+    step = bench_train.make_program(model.arch_config(sizes), opt)
+    n_leaves = len(flatten(params)[0])
+    adamw_fused_call.launches = adamw_fused_call.leaves = 0
+    adamw_per_leaf.card_leaves = 0
+    for i in range(2):
+        raw = tokens.batch(sizes.vocab, 128, 2, 7, i, 0.9)
+        batch = {k: torch.from_numpy(v).to(card) for k, v in raw.items()}
+        params, state, metrics = step(params, state, batch)
+    assert math.isfinite(float(metrics["loss"]))
+    assert adamw_fused_call.launches == 2 * 2
+    assert adamw_fused_call.leaves == 2 * n_leaves
+    assert adamw_per_leaf.card_leaves == 0
+
+
+@pytest.mark.cuda
+def test_adamw_refuses_a_card_tree_it_does_not_take(card):
+    """Another dtype, a non-contiguous leaf, leaves on two devices: a
+    ValueError, nothing launched, nothing through the per-leaf code."""
+    from repro_torch.kernels.adamw import adamw_fused_call
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_per_leaf, adamw_update
+
+    cfg = AdamWConfig()
+    w = torch.randn(8, 4, device=card)
+    cases = {
+        "bfloat16 or float32": ({"w": w.half()}, {"w": w.half()}),
+        "contiguous": ({"w": w.t()}, {"w": w.t()}),
+        "one device": ({"w": w, "b": torch.ones(4)}, {"w": w, "b": torch.ones(4)}),
+    }
+    for why, (params, grads) in cases.items():
+        launches, plain = adamw_fused_call.launches, adamw_per_leaf.card_leaves
+        state = adamw_init(params)
+        if why == "bfloat16 or float32":
+            state = {**state, "m": {"w": torch.zeros(8, 4, device=card)},
+                     "v": {"w": torch.zeros(8, 4, device=card)}}
+        with pytest.raises(ValueError, match=why):
+            adamw_update(params, grads, state, cfg)
+        assert adamw_fused_call.launches == launches
+        assert adamw_per_leaf.card_leaves == plain
+
+
+@pytest.mark.cuda
+def test_adamw_dtensor_tree_on_a_card_takes_the_per_leaf_code(card, tmp_path):
+    """A one-rank nccl mesh of the card, every leaf a replicated DTensor:
+    the per-leaf code updates every leaf on the card (its norm needs the
+    cross-rank reduction the kernel does not make), the kernel none; the
+    local values are the per-leaf code's on the plain tree, bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor, init_device_mesh
+
+    from repro_torch.kernels.adamw import adamw_fused_call
+    from repro_torch.optim import AdamWConfig, adamw_per_leaf, adamw_update
+    from repro_torch.tree import flatten, tree_map
+
+    cfg = AdamWConfig(lr_peak=1e-2, warmup_steps=2, total_steps=10, clip_norm=1e6)
+    params, grads, state, decay = _adamw_tree(4, card, 1.0)
+    params, grads = ({k: v.contiguous() for k, v in t.items()} for t in (params, grads))
+    state = {**state, "m": {k: v.contiguous() for k, v in state["m"].items()},
+             "v": {k: v.contiguous() for k, v in state["v"].items()}}
+    want = _per_leaf(params, grads, state, cfg, decay)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous",
+                            world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1,))
+        put = lambda tree: tree_map(  # noqa: E731
+            lambda t: distribute_tensor(t, mesh, [Replicate()]), tree)
+        launches, plain = adamw_fused_call.launches, adamw_per_leaf.card_leaves
+        new_p, new_state, _ = adamw_update(put(params), put(grads), put(state), cfg,
+                                           decay=decay)
+        assert adamw_fused_call.launches == launches
+        assert adamw_per_leaf.card_leaves - plain == len(flatten(params)[0])
+        for got_role, want_role in zip(_flat_step(new_p, new_state), want[:3]):
+            for got, w in zip(got_role, want_role):
+                assert torch.equal(got.to_local(), w)
+    finally:
+        dist.destroy_process_group()
