@@ -18,7 +18,6 @@ from pathlib import Path
 import torch
 
 from benchkit import guard, trace as trace_mod
-from benchkit.model import Sizes, arch_config, sizes
 from benchkit.spec import Spec
 
 
@@ -38,11 +37,14 @@ class Call:
 
 @dataclass
 class Run:
-    """What a run recorded, as the metrics' readers see it."""
+    """What a run recorded, as the metrics' readers see it: ``family``
+    is the configuration's family adapter (`benchkit.spec`), ``sizes``
+    its sizes."""
     cell: dict
-    sizes: Sizes
+    sizes: object
     traffic: dict
     device: str
+    family: object = None
     setup_s: float = math.nan
     calls: list = field(default_factory=list)
     t0: float = math.nan
@@ -96,7 +98,8 @@ class Ctx:
     spec: Spec
     cell: dict
     config: dict
-    sizes: Sizes
+    family: object
+    sizes: object
     traffic: dict
     limits: dict
     reference: object
@@ -105,14 +108,15 @@ class Ctx:
 
     @property
     def arch(self):
-        return arch_config(self.sizes)
+        return self.family.arch_config(self.sizes)
 
 
 def context(spec: Spec, workload: str, seed: int, device: str) -> Ctx:
     cell = spec.cell(workload)
     _, config = spec.config(cell["config"])
-    return Ctx(spec=spec, cell=cell, config=config,
-               sizes=sizes(cell["config"], config),
+    family = spec.module("families", config["reference"])
+    return Ctx(spec=spec, cell=cell, config=config, family=family,
+               sizes=family.sizes(cell["config"], config),
                traffic=spec.data("traffic", cell["traffic"]),
                limits=spec.data("limits", workload),
                reference=spec.module("reference", config["reference"]),
@@ -195,7 +199,8 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, *,
     spec = Spec(Path(root))
     ctx = context(spec, workload, seed, device)
     on_card = device.startswith("cuda")
-    run = Run(cell=ctx.cell, sizes=ctx.sizes, traffic=ctx.traffic, device=device)
+    run = Run(cell=ctx.cell, sizes=ctx.sizes, traffic=ctx.traffic, device=device,
+              family=ctx.family)
     drv = driver_of(ctx)
     drv.setup()
     # what set-up made (modules, weights, the program's objects) lives to

@@ -7,7 +7,10 @@ and ``qkv_bias`` (biases on the q, k and v projections, which some
 architectures carry without a ``config.json`` key for them). `Sizes` is
 what the benchmark's own code reads of it; `arch_config` builds the
 port's ``ArchConfig`` from the same numbers. A configuration whose block
-the dense SwiGLU stack does not compute exactly is refused."""
+the dense SwiGLU stack does not compute exactly is refused: another
+activation, LayerNorm, partial rotary, more than one expert, a layer
+plan with other kinds of layer (Mamba, periods of attention or experts,
+``layer_types``), or a sliding window."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -36,11 +39,25 @@ class Sizes:
         return self.kv_heads * self.head_dim
 
 
+#: keys of a layer plan with blocks other than attention and one MLP
+PLAN_KEYS = ("attn_layer_period", "attn_layer_offset", "expert_layer_period",
+             "expert_layer_offset", "layer_types")
+
+
 def sizes(name: str, cfg: dict) -> Sizes:
     if cfg.get("hidden_act", "silu") != "silu":
         raise ValueError(f"{name}: only the SwiGLU (silu) block is run")
     if "layer_norm_eps" in cfg or cfg.get("partial_rotary_factor", 1.0) != 1.0:
         raise ValueError(f"{name}: only RMSNorm and rotary on the whole head are run")
+    experts = max(cfg.get("num_experts") or 1, cfg.get("num_local_experts") or 1)
+    if experts > 1:
+        raise ValueError(f"{name}: {experts} experts; only one MLP a layer is run")
+    plan = sorted(k for k in cfg if k in PLAN_KEYS or k.startswith("mamba_"))
+    if plan:
+        raise ValueError(f"{name}: {plan} name layers other than attention; "
+                         "only attention in every layer is run")
+    if cfg.get("sliding_window") is not None or cfg.get("use_sliding_window"):
+        raise ValueError(f"{name}: only full causal attention is run")
     heads = cfg["num_attention_heads"]
     return Sizes(
         name=name,

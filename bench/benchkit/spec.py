@@ -10,7 +10,39 @@ adding files:
   ``drivers/<driver>.py``, the loop that drives the program;
 - ``limits/<cell>.json``: the limit of each number compared;
 - ``metrics/<metric>.py``: ``read(run)``, the metric's value or None;
-- ``reference/<family>.py``: the plain reference a configuration names.
+- ``reference/<family>.py``: the plain reference a configuration names
+  by its ``reference`` key;
+- ``families/<family>.py``: the adapter of that same family, through
+  which the harness, the drivers and the readers reach everything that
+  depends on the model's architecture.
+
+A family adapter is a module that provides:
+
+- ``sizes(name, cfg)``: the family's sizes (an object with at least
+  ``vocab``), read from the configuration file's published
+  ``config.json`` keys; it raises ``ValueError`` on a file whose block
+  the family does not compute exactly;
+- ``arch_config(sizes)``: the port's ``ArchConfig`` of those sizes;
+- ``make_weights(sizes, seed, device, dtype=torch.bfloat16)``: the
+  weights drawn from the seed on the device, as the reference takes
+  them; ``port_tree(w, sizes)``: the port's parameter tree over them;
+  ``port_leaves(tree, sizes)`` and ``stacked_leaves(w, sizes)``: ``{leaf
+  name: tensor}`` of a tree shaped like the port's and of the weights,
+  under one set of names;
+- ``cache_views(cache, S)``: for each layer of the port's prefill cache,
+  ``{name: tensor}`` over the prompt's ``S`` positions, under the names
+  that the reference's ``on_layer(i, {name: tensor})`` gives that layer
+  (a family may hold different state in different layers: K and V in
+  one, a convolution window and a scan state in another);
+- ``prefill_flops(sizes, B, S)`` and ``train_step_flops(sizes, B, S)``:
+  the model operations of a call, which the MFU readers count;
+  ``attention_layers(sizes)`` and ``attention_shape(sizes)`` (heads, KV
+  heads, head width): what the flash readers count.
+
+Not there yet, for the first family with layers of more than one kind:
+per-kind readers of the program's ``prefill.mixer`` and ``prefill.ffn``
+spans (they carry ``kind``; `program_spans` sums every kind), and a
+roofline reader for the selective scan's kernel.
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ run decides it (`harness.verdict` against the cell's limits); run from
 the root of a checkout on the card:
 
     python3 bench/calibration/readings.py --workload <cell> --seeds 1,2 \\
-        --control 1,2,3 --faults half_batch:1,2,3 [--seconds 3]
+        --control 1,2,3 --faults half_sequence:1,2,3 [--seconds 3]
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", default="")
     ap.add_argument("--control", default="")
     ap.add_argument("--faults", action="append", default=[],
-                    help="<fault>:<seed>,<seed>,...")
+                    help="<fault>:<seed>,<seed>,... (a fault of calibration.faults.FAULTS)")
     ap.add_argument("--seconds", type=float, default=3.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--root", default=str(ROOT),

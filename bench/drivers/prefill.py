@@ -15,14 +15,15 @@ The check, once the window has closed: the reference runs over the
 last call's prompts and over ``check_requests`` more requests drawn from
 the seed (with a row of the longest length served). Compared: the widest
 gap by which a served token's logit lies below the reference's best,
-the last call's logits (relative L2), and its KV cache, worst layer
-(relative L2 of K and of V)."""
+the last call's logits (relative L2), and its cache, worst layer and
+tensor (relative L2 of each tensor the reference names for the layer:
+K and V in an attention layer; see the family's ``cache_views``)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from benchkit import compare, weights
+from benchkit import compare
 from benchkit.harness import span
 from benchkit.tokens import seed_u63
 
@@ -78,8 +79,8 @@ class Driver:
 
     def setup(self) -> None:
         ctx, s = self.ctx, self.ctx.sizes
-        self.w = weights.make(s, ctx.seed, ctx.device)
-        self.params = weights.port_tree(self.w, s)
+        self.w = ctx.family.make_weights(s, ctx.seed, ctx.device)
+        self.params = ctx.family.port_tree(self.w, s)
         extra = ctx.traffic["cache_extra"]
         self.steps = {S: make_program(ctx.arch, S + extra) for S in set(self.cycle)}
         self.prompts_from_seed()
@@ -120,9 +121,10 @@ class Driver:
     def judge(self, outputs) -> list[tuple[str, float]]:
         """``outputs(picks, toks, on_layer)`` gives the served tokens of
         ``picks`` (``[(call, rows)]``, prompts ``toks``) and, for the last
-        call (with ``on_layer``), its logits and each layer's K and V to
-        ``on_layer``. The reference works out its own: the rows of one
-        length in one pass."""
+        call (with ``on_layer``), its logits and each layer's named cache
+        tensors to ``on_layer(i, {name: tensor})``. The reference works
+        out its own: the rows of one length in one pass. A tensor that
+        one side names for a layer and the other lacks fails the check."""
         ctx, s = self.ctx, self.ctx.sizes
         ref = ctx.reference
         last = len(self.served) - 1
@@ -135,16 +137,19 @@ class Driver:
             toks = torch.cat([self.served[c][0][rows] for c, rows in picks])
             served, _ = outputs(picks, toks, None)
             gaps.append(compare.token_gaps(ref.prefill(s, self.w, toks), served).cpu())
-        got_kv = {}
+        got_cache = {}
         toks = self.served[last][0]
         served, got_logits = outputs([(last, list(range(self.B)))], toks,
-                                     lambda i, k, v: got_kv.__setitem__(i, (k, v)))
+                                     got_cache.__setitem__)
         cache_gap = 0.0
 
-        def on_layer(i, k, v):
+        def on_layer(i, want):
             nonlocal cache_gap
-            gk, gv = got_kv.pop(i)
-            cache_gap = max(cache_gap, compare.rel_l2(gk, k), compare.rel_l2(gv, v))
+            got = got_cache.pop(i)
+            # a tensor that one side lacks reads 1, as zeros in its place would
+            cache_gap = max([cache_gap, *(compare.rel_l2(got[n], want[n])
+                                          if n in got and n in want else 1.0
+                                          for n in sorted(got.keys() | want.keys()))])
 
         want = ref.prefill(s, self.w, toks, on_layer=on_layer)
         gaps.append(compare.token_gaps(want, served).cpu())
@@ -156,11 +161,8 @@ class Driver:
         served = torch.cat([self.served[c][1][rows] for c, rows in picks])
         if on_layer is None:
             return served, None
-        S = toks.shape[1]
-        for i, layer in enumerate(self.cache):
-            # (B, kv, cache_len, hd) -> the prompt's (B, S, kv, hd)
-            on_layer(i, layer["k"][:, :, :S].transpose(1, 2),
-                     layer["v"][:, :, :S].transpose(1, 2))
+        for i, named in enumerate(self.ctx.family.cache_views(self.cache, toks.shape[1])):
+            on_layer(i, named)
         return served, self.logits
 
     def check(self) -> list[tuple[str, float, float]]:
@@ -171,7 +173,7 @@ class Driver:
         """The numbers with the reference in fp8 in the program's place,
         over the prompts a window's first cycle of calls would send."""
         self.prompts_from_seed()
-        self.w = weights.make(self.ctx.sizes, self.ctx.seed, self.ctx.device)
+        self.w = self.ctx.family.make_weights(self.ctx.sizes, self.ctx.seed, self.ctx.device)
         for S in sorted(set(self.cycle)):
             self.prompt(S)  # the warm-up's draws
         self.served = [(self.prompt(self.next_length()), None)

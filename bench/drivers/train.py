@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from benchkit import compare, tokens, weights
+from benchkit import compare, tokens
 from benchkit.harness import span
 
 
@@ -40,8 +40,8 @@ def batch_at(ctx, step: int) -> dict:
     return {k: torch.from_numpy(v).to(ctx.device) for k, v in raw.items()}
 
 
-def leaf_norms(tree, s, scale=1.0) -> dict:
-    named = weights.port_leaves(tree, s)
+def leaf_norms(family, tree, s, scale=1.0) -> dict:
+    named = family.port_leaves(tree, s)
     norms = torch.stack([x.float().norm() for x in named.values()]) * scale
     return dict(zip(named, norms.tolist()))
 
@@ -65,9 +65,9 @@ class Driver:
     def setup(self) -> None:
         from repro_torch.optim import adamw_init
 
-        ctx, s = self.ctx, self.ctx.sizes
-        w = weights.make(s, ctx.seed, ctx.device)
-        self.params = weights.port_tree(w, s)
+        ctx, s, fam = self.ctx, self.ctx.sizes, self.ctx.family
+        w = fam.make_weights(s, ctx.seed, ctx.device)
+        self.params = fam.port_tree(w, s)
         self.opt_state = adamw_init(self.params)
         self.step_fn = make_program(ctx.arch, ctx.traffic["optimizer"])
         self.losses, self.grad = [], {}
@@ -75,10 +75,10 @@ class Driver:
         for i in range(ctx.traffic["checked_steps"]):
             self.losses.append(self.step(i))
             if i == 0:
-                self.grad = leaf_norms(self.opt_state["m"], s, 1.0 / (1.0 - b1))
+                self.grad = leaf_norms(fam, self.opt_state["m"], s, 1.0 / (1.0 - b1))
         # the stacked weights keep the first values: AdamW makes new tensors
-        named = weights.port_leaves(self.params, s)
-        first = weights.stacked_leaves(w, s)
+        named = fam.port_leaves(self.params, s)
+        first = fam.stacked_leaves(w, s)
         diff = torch.stack([(named[n].float() - first[n].float()).norm() for n in named])
         self.change = dict(zip(named, diff.tolist()))
         self.next = ctx.traffic["checked_steps"]
@@ -95,7 +95,7 @@ class Driver:
 
     def reference_run(self, prec: str) -> dict:
         ctx = self.ctx
-        w = weights.make(ctx.sizes, ctx.seed, ctx.device)
+        w = ctx.family.make_weights(ctx.sizes, ctx.seed, ctx.device)
         batches = [batch_at(ctx, i) for i in range(ctx.traffic["checked_steps"])]
         return ctx.reference.train(ctx.sizes, w, batches, ctx.traffic["optimizer"], prec)
 

@@ -133,7 +133,7 @@ def block(x, lw, s, mm, kv_out=None):
 @torch.no_grad()
 def prefill(s, w, tokens, prec="fp32", on_layer=None):
     """Last-token logits (B, V) of ``tokens`` (B, S) under weights ``w``;
-    ``on_layer(i, k, v)`` sees each layer's K and V."""
+    ``on_layer(i, {"k": K, "v": V})`` sees each layer's K and V."""
     _fp32_products()
     mm = _mm(prec)
     x = w["embed"][tokens.long()].float()
@@ -142,7 +142,7 @@ def prefill(s, w, tokens, prec="fp32", on_layer=None):
         kv = [] if on_layer is not None else None
         x = block(x, lw, s, mm, kv)
         if on_layer is not None:
-            on_layer(i, *kv)
+            on_layer(i, dict(zip(("k", "v"), kv)))
         del lw, kv
     h = rms(x[:, -1], w["final_norm"].float(), s.norm_eps)
     return mm(h, w["lm_head"].float())

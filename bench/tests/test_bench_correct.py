@@ -33,6 +33,7 @@ def test_the_control_fails(smoke_root, cell):
 
 @pytest.mark.parametrize("cell,fault", [("smoke.smoke_train", "unchanged"),
                                         ("smoke.smoke_train", "half_batch"),
+                                        ("smoke.smoke_train", "half_sequence"),
                                         ("smoke.smoke_prefill", "token")])
 def test_each_fault_fails(smoke_root, cell, fault):
     with planted(Spec(smoke_root), fault):
@@ -48,3 +49,31 @@ def test_every_seed_sends_the_same_prompt_lengths(smoke_root):
                                                 seed, "cpu"))
         lengths.append([drv.next_length() for _ in range(7)])
     assert lengths[0] == lengths[1] == [16, 48, 16, 16, 48, 16, 16]
+
+
+def test_half_sequence_sends_half_of_every_row(smoke_root):
+    """The fault keeps every row and cuts its positions, where
+    ``half_batch`` cuts the rows."""
+    spec = Spec(smoke_root)
+    train = spec.module("drivers", "train")
+    seen = []
+    real = train.make_program
+
+    def recording(arch, opt):
+        step = real(arch, opt)
+        return lambda p, s, batch: seen.append(batch["tokens"].shape) or step(p, s, batch)
+
+    train.make_program = recording
+    try:
+        for fault in ("half_sequence", "half_batch"):
+            with planted(spec, fault):
+                _run(smoke_root, "smoke.smoke_train", 5)
+    finally:
+        train.make_program = real
+    assert seen[0] == (4, 32) and seen[-1] == (2, 64)
+
+
+def test_an_unknown_fault_is_refused(smoke_root):
+    with pytest.raises(ValueError, match="half_sequence"):
+        with planted(Spec(smoke_root), "half_sequnce"):
+            pass

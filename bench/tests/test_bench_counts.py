@@ -40,3 +40,28 @@ def test_model_flops_of_the_two_configurations():
     attn = 4 * 128 * 1 * 32 * (32768 * 32769 / 2)
     want = 2 * 40 * per_layer * 32768 + 40 * attn + 2 * 5120 * 131072
     assert flops.prefill_flops(nemo, 1, 32768) == want
+
+
+#: the frozen formulas' counts at the cells' shapes, as they read before
+#: the harness reached them through the family adapter
+PINNED = [
+    ("qwen1.5-1.8b", "train_step_flops", 8, 2048, 159854924660736.0),
+    ("qwen1.5-1.8b", "train_step_flops", 1, 16384, 229124157210624.0),
+    ("mistral-nemo-12b", "prefill_flops", 1, 32768, 1066538358538240.0),
+    ("mistral-nemo-12b", "prefill_flops", 8, 128, 22387852574720.0),
+    ("mistral-nemo-12b", "prefill_flops", 8, 256, 44850867077120.0),
+    ("mistral-nemo-12b", "prefill_flops", 8, 512, 90034594119680.0),
+    ("mistral-nemo-12b", "prefill_flops", 8, 1024, 181432840355840.0),
+    ("mistral-nemo-12b", "prefill_flops", 8, 2048, 368352501432320.0),
+]
+
+
+@pytest.mark.parametrize("name,count,B,S,want", PINNED)
+def test_the_dense_familys_counts_are_the_frozen_values(name, count, B, S, want):
+    spec = Spec(ROOT)
+    _, cfg = spec.config(name)
+    family = spec.module("families", cfg["reference"])
+    s = family.sizes(name, cfg)
+    assert getattr(family, count)(s, B, S) == want
+    assert family.attention_layers(s) == s.layers
+    assert family.attention_shape(s) == (s.heads, s.kv_heads, s.head_dim)
